@@ -114,6 +114,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: needs a real TPU backend (TDP_TPU_TESTS=1)")
     config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one "
+                   "(run on the card: python -m pytest tests/test_torch_gpu.py -m gpu)")
+    config.addinivalue_line(
         "markers", "slow: long randomized chaos soak (TDP_CHAOS_SOAK=1; "
                    "run via `make chaos-soak`)")
 

@@ -1,0 +1,143 @@
+"""Port parity: tpu_device_plugin_torch flash attention vs the JAX kernel.
+
+Inputs are made with numpy from a seed and handed to both frameworks. The
+JAX side runs its Pallas kernel in interpret mode on the CPU, as
+tests/test_flash_attention.py does; the port's wrapper runs its plain
+version on CPU tensors. Tolerances are the JAX tests' own: f32 < 1e-5
+(only summation order differs) and bf16 < 3e-2 (bf16 keeps 8 bits of
+mantissa, and the JAX kernel rounds P to bf16 before PV where the port's
+plain version stays in f32).
+
+The CUDA kernel itself runs only on a card: tests/test_torch_gpu.py holds
+it against the plain version there.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from tpu_device_plugin.validator import flash_attention as jfa  # noqa: E402
+from tpu_device_plugin_torch.validator import _kernels  # noqa: E402
+from tpu_device_plugin_torch.validator import flash_attention as tfa  # noqa: E402
+
+TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def inputs(hb, seq, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((hb, seq, d), dtype=np.float32)
+            for _ in range(3)]
+
+
+def to_jax(arrays, dtype):
+    return [jnp.asarray(a).astype(dtype) for a in arrays]
+
+
+def to_torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block", [(128, 64), (96, 64), (64, 128)])
+def test_forward_matches_jax_kernel(dtype, d, causal, seq, block):
+    arrays = inputs(2, seq, d, seed=seq + d)
+    out = tfa.flash_attention(*to_torch(arrays, dtype), None, causal)
+    assert out.dtype == getattr(torch, dtype)
+    jq = to_jax(arrays, dtype)
+    kernel = jfa.flash_attention(*jq, None, causal, block, block, True)
+    ref = jfa._reference_attention(*jq, d ** -0.5, causal)
+    assert np.max(np.abs(as_np(out) - as_np(kernel))) < TOL[dtype]
+    assert np.max(np.abs(as_np(out) - as_np(ref))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block", [(128, 64), (96, 64), (64, 128)])
+def test_lse_matches_jax_kernel(causal, seq, block):
+    d = 32
+    arrays = inputs(2, seq, d, seed=7)
+    _, lse = tfa.flash_attention(*to_torch(arrays, "float32"), None, causal,
+                                 return_lse=True)
+    assert lse.shape == (2, seq) and lse.dtype == torch.float32
+    _, jlse = jfa._flash_3d(*to_jax(arrays, jnp.float32), d ** -0.5, causal,
+                            block, block, True, return_lse=True)
+    assert np.max(np.abs(lse.numpy() - np.asarray(jlse)[..., 0])) < 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_attention_matches_jax(causal):
+    d = 16
+    arrays = inputs(2, 96, d, seed=3)
+    out = tfa._reference_attention(*to_torch(arrays, "float32"), d ** -0.5,
+                                   causal)
+    ref = jfa._reference_attention(*to_jax(arrays, jnp.float32), d ** -0.5,
+                                   causal)
+    assert np.max(np.abs(out.numpy() - np.asarray(ref))) < 1e-5
+
+
+def test_default_scale_and_plain_version_agree():
+    q, k, v = to_torch(inputs(2, 64, 32, seed=5), "float32")
+    assert torch.equal(tfa.flash_attention(q, k, v),
+                       tfa.flash_attention_plain(q, k, v, 32 ** -0.5, True))
+
+
+def test_other_devices_are_refused():
+    q = torch.empty((2, 64, 32), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("rank", "one shape"),
+    ("mismatch", "one shape"),
+    ("float16", "float32 or bfloat16"),
+    ("mixed", "float32 or bfloat16"),
+    ("strided", "contiguous"),
+    ("head_dim", "no head_dim 48"),
+])
+def test_kernel_input_checks(case, match):
+    """What the wrapper refuses before any pointer reaches the kernel."""
+    q = torch.zeros((2, 64, 32))
+    k = v = q
+    if case == "rank":
+        q = k = v = torch.zeros((2, 64))
+    elif case == "mismatch":
+        k = torch.zeros((2, 32, 32))
+    elif case == "float16":
+        q = k = v = q.half()
+    elif case == "mixed":
+        k = q.bfloat16()
+    elif case == "strided":
+        q = torch.zeros((2, 32, 64)).transpose(1, 2)
+    elif case == "head_dim":
+        q = k = v = torch.zeros((2, 64, 48))
+    with pytest.raises(ValueError, match=match):
+        tfa._check_kernel_inputs(q, k, v)
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.build_all()
+
+
+def test_kernel_library_name_follows_source_and_flags(monkeypatch):
+    """A changed source or flag set gets a fresh library, never a stale one."""
+    src = _kernels.CSRC / "flash_fwd.cu"
+    assert src.is_file()
+    digest = _kernels._digest(src)
+    assert len(digest) == 16 and digest == _kernels._digest(src)
+    monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
+    assert _kernels._digest(src) != digest

@@ -1,0 +1,179 @@
+"""The port's probe, CLI, datasheet peaks, timing, and import hygiene.
+
+Runs on the CPU at a tiny configuration (`device="cpu"`); the card's own
+run is chip_smoke.py.
+"""
+
+import ast
+import json
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_device_plugin_torch.validator import peaks, probe, timing
+from tpu_device_plugin_torch.validator.workload import ModelConfig
+
+REPO = Path(__file__).resolve().parent.parent
+TINY = ModelConfig(vocab=32, d_model=32, n_heads=2, d_ff=64, n_layers=2,
+                   seq_len=32, batch=2)
+
+
+def test_validate_slice_infer_on_cpu():
+    report = probe.validate_slice(cfg=TINY, steps=2, device="cpu")
+    assert report.ok, report.error
+    assert report.platform == "cpu" and report.device_kinds == ["cpu"]
+    assert report.infer_p50_ms > 0 and report.infer_p99_ms >= report.infer_p50_ms
+    assert report.step_time_s > 0 and report.tokens_per_s > 0
+    # first forward + 2 latency samples + the differencing chains
+    assert report.forwards > 3
+    # no peak for the CPU: no fractions, no veto
+    assert report.peak_tflops == 0 and not report.perf_suspect
+    assert report.matmul_tflops > 0 and report.hbm_gbps > 0
+    assert json.loads(report.to_json())["ok"] is True
+
+
+def test_validate_slice_counts_kernel_path_forwards(monkeypatch):
+    """flash mode on CPU tensors: the plain version, never the kernel."""
+    from tpu_device_plugin_torch.validator import flash_attention as fa
+    monkeypatch.setattr(probe, "_microbench", lambda dev, m=None: (1.0, 1.0))
+    before = fa.launches
+    report = probe.validate_slice(cfg=TINY, steps=1, attention="flash",
+                                  device="cpu")
+    assert report.ok, report.error
+    assert fa.launches == before
+
+
+def test_unported_mode_is_a_config_error():
+    report = probe.validate_slice(cfg=TINY, mode="train", device="cpu")
+    assert report.invalid_config and not report.ok
+    assert "not yet ported" in report.error
+
+
+def test_missing_cuda_is_reported_not_raised(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    report = probe.validate_slice(cfg=TINY, steps=1)
+    assert not report.ok and not report.invalid_config
+    assert "CUDA" in report.error
+
+
+def test_microbench_failure_never_vetoes(monkeypatch):
+    def boom(device, min_diff_s=None):
+        raise RuntimeError("microbench exploded")
+    monkeypatch.setattr(probe, "_microbench", boom)
+    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    assert report.ok
+    assert "microbench skipped" in report.error
+
+
+def test_impossible_microbench_vetoes(monkeypatch):
+    """A reading above 1.05x the datasheet peak refuses the run, even after
+    the retry (here the CPU run is checked against the H100 SXM peak)."""
+    monkeypatch.setattr(probe, "_microbench",
+                        lambda dev, m=None: (2000.0, 100.0))
+    monkeypatch.setattr(peaks, "lookup", lambda name: peaks.PEAKS["h100-sxm5"])
+    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    assert report.perf_suspect and not report.ok
+    assert "exceeds datasheet peak" in report.error
+    assert report.peak_tflops == 989.0
+
+
+def test_main_exit_code_zero_on_cpu(capsys):
+    rc = probe.main(["--device", "cpu", "--steps", "1", "--seq-len", "32"])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert rc == 0
+    assert json.loads(out)["ok"] is True
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mode", "train"], "item 2"),
+    (["--mode", "attn-bench"], "item 7"),
+    (["--mode", "ring-bench"], "item 7"),
+    (["--tp", "2"], "item 3"),
+    (["--sp", "2"], "item 3"),
+    (["--pp", "2"], "item 3"),
+    (["--ep", "2"], "item 3"),
+])
+def test_main_rejects_unported_with_exit_2(argv, match, capsys):
+    with pytest.raises(SystemExit) as exc:
+        probe.main(argv + ["--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and match in err
+
+
+def test_main_exit_code_one_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe.main(["--steps", "1"]) == 1
+
+
+def test_presets_match_jax_package():
+    assert probe.PRESETS["mfu"] == dict(d_model=2048, n_heads=16, d_ff=8192,
+                                        n_layers=8, seq_len=2048, batch=8)
+    cfg = ModelConfig(**probe.PRESETS["mfu"])
+    assert cfg.d_model // cfg.n_heads == 128
+
+
+@pytest.mark.parametrize("name,gen,tflops,gbps", [
+    ("NVIDIA H100 80GB HBM3", "h100-sxm5", 989.0, 3350.0),
+    ("NVIDIA H100 PCIe", "h100-pcie", 756.0, 2000.0),
+])
+def test_peaks_known_cards(name, gen, tflops, gbps):
+    peak = peaks.lookup(name)
+    assert (peak.generation, peak.bf16_tflops, peak.hbm_gbps) == (gen, tflops, gbps)
+    got, suspect, why = peaks.check(name, 0.8 * tflops, 0.8 * gbps)
+    assert got is peak and not suspect and why == ""
+
+
+@pytest.mark.parametrize("name", ["cpu", "", "NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 NVL", "TPU v5 lite"])
+def test_peaks_unknown_card_gives_no_fractions(name):
+    assert peaks.check(name, 1e9, 1e9) == (None, False, "")
+
+
+def test_peaks_suspect_veto():
+    name = "NVIDIA H100 80GB HBM3"
+    _, suspect, why = peaks.check(name, tflops=989.0 * 1.06)
+    assert suspect and "TFLOP/s" in why
+    _, suspect, why = peaks.check(name, gbps=3350.0 * 1.06)
+    assert suspect and "GB/s" in why
+    _, suspect, _ = peaks.check(name, 989.0 * 1.04, 3350.0 * 1.04)
+    assert not suspect
+
+
+def test_timing_median_and_paired_time():
+    assert timing.median([3.0, 1.0, 2.0]) == 2.0
+    calls = []
+
+    def build(k):
+        def run(x):
+            calls.append(k)
+            return (x * k).sum()
+        return run
+
+    x = torch.ones(4)
+    assert timing.paired_time(build, (x,), 3, 4) >= 0.0
+    # warm both chain lengths, then 3 interleaved pairs
+    assert calls == [4, 8] + [4, 8] * 3
+    calls.clear()
+    assert timing.paired_time(build, (x,), 2, 1) >= 0.0
+    assert calls == [1, 1, 1]   # plain per-call timing after one warmup
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax_nor_the_jax_package():
+    files = sorted((REPO / "tpu_device_plugin_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 5
+    for path in files:
+        for name in _imports(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "tpu_device_plugin"), (
+                f"{path.relative_to(REPO)} imports {name}")

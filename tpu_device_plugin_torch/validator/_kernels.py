@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels under `csrc/`.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
+with a plain C interface and loaded with `ctypes`: no PyTorch headers, so a
+build takes seconds. Builds happen at first use, all sources at once (one
+`nvcc` process each, started together), into `_build/` beside this file,
+which `.gitignore` lists. A library's file name carries a hash of its
+source, the headers and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused.
+
+A missing `nvcc` or a failed compile raises `RuntimeError`; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_TIMEOUT_S = 600
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output per kernel (with -Xptxas -v: registers, shared memory,
+# spills), kept for whoever wants to print it
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA toolkit is "
+        "needed to build the kernels in " + str(CSRC))
+
+
+def _digest(src: Path) -> str:
+    h = hashlib.sha256()
+    for part in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(part.name.encode())
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every stale `csrc/*.cu`; returns {name: library path}."""
+    out = {src.stem: BUILD_DIR / f"{src.stem}-{_digest(src)}.so"
+           for src in sorted(CSRC.glob("*.cu"))}
+    stale = {name: path for name, path in out.items() if not path.exists()}
+    if not stale:
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, path in stale.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    try:
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            build_log[name] = log
+            if proc.returncode != 0:
+                failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, stale[name])
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        raise RuntimeError("kernel build failed: " + "\n".join(failures))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<name>.cu` (built on first use)."""
+    if name not in _libs:
+        paths = build_all()
+        if name not in paths:
+            raise RuntimeError(f"no kernel source {name}.cu in {CSRC}")
+        _libs[name] = ctypes.CDLL(str(paths[name]))
+    return _libs[name]
