@@ -9,15 +9,19 @@ failure:
 
 1. print the card (`nvidia-smi` name and power limit, torch's name);
 2. build every kernel under tpu_device_plugin_torch/validator/csrc/;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shape and at small ragged shapes, and time the kernel,
-   the plain version, and the one PyTorch call computing the same function
-   (`library_ms`, a yardstick the port never calls);
+3. hold each kernel (K1 the flash forward, K2 and K3 the flash backward)
+   against its plain PyTorch version on the card, at the main path's shape
+   and at small ragged shapes, and time the kernel, the plain version, and
+   the one PyTorch call computing the same function (`library_ms`, a
+   yardstick the port never calls);
 4. drive the serving path at the `mfu` preset through
-   `probe.validate_slice(mode="infer")`, assert it is ok and that every
-   forward went through the kernel (launch counts), then compare one
-   forward's logits with the same forward through the kernel's plain
-   version on the same weights, at mfu and at a small configuration;
+   `probe.validate_slice(mode="infer")` and the training path through
+   `probe.validate_slice(mode="train")`, each with the launch counts set
+   to 0 just before it, and assert each is ok and went through its
+   kernels; then compare one forward's logits, and one training step's
+   loss and gradients, with the same computation through the kernels'
+   plain versions on the same weights, at mfu and at a small
+   configuration;
 5. print one JSON line of kernels, then, last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
@@ -40,6 +44,24 @@ PEAK_BYTES_PER_S = 3.35e12
 # bf16 output rounding is 2^-8 relative; f32 differs only by summation order
 O_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-3
+# K2/K3 vs their plain versions, element by element:
+# |dg| <= GRAD_ATOL x max(max |g|, 1) + GRAD_RTOL x |g|. Both compute in f32
+# from the same inputs, lse and D, and the plain version's f32 result is
+# the reference: a bf16 output rounds to within half an ulp, at most 2^-8
+# of |g|, so bf16 is held to one ulp (2^-7); f32 outputs differ only by
+# summation order. The absolute term covers elements near 0, where only
+# f32 summation noise is left, and gradients that vanish (seq 1: one key,
+# dq and dk are rounding noise); at the mfu shape, where max |g| is near 5
+# and most elements are a few hundredths, it is 5e-4 in bf16.
+GRAD_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
+GRAD_ATOL = {"bfloat16": 1e-4, "float32": 1e-5}
+# One training step through the kernels vs the same step through the plain
+# versions: only the attention's summation order and bf16 roundings of its
+# outputs differ, fed through 8 bf16 layers; the port's step against the
+# JAX package's differs by at most 1.6% of max |g| per leaf and 5.2e-4 in
+# the loss (tests/test_torch_train.py). Held to 3% per leaf and 1e-3.
+STEP_GRAD_REL_TOL = 0.03
+STEP_LOSS_TOL = 1e-3
 # A forward through the kernel vs the same forward through its plain
 # version: only the attention's summation order, hence some 1-ulp bf16
 # roundings of its output, differ. Max |dlogit| <= 2% of max |logit|, and
@@ -82,13 +104,34 @@ def attention_bound(hb: int, seq: int, d: int, dtype: str, causal: bool):
 
     Operations: QK^T and PV over the (causal) score pairs, 2 FLOPs per
     multiply-add each. Bytes: q, k, v read once, o written once."""
-    pairs = seq * (seq + 1) // 2 if causal else seq * seq
-    flops = 4.0 * hb * d * pairs
     itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * hb * seq * d * itemsize
+    return _bound(4.0 * hb * d * _pairs(seq, causal),
+                  4 * hb * seq * d * itemsize, dtype)
+
+
+def _pairs(seq: int, causal: bool) -> int:
+    return seq * (seq + 1) // 2 if causal else seq * seq
+
+
+def _bound(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def bwd_bounds(hb: int, seq: int, d: int, dtype: str, causal: bool):
+    """Least time (ms) for K2 and for K3 on the card, and what bounds each.
+
+    Operations, 2 FLOPs per multiply-add: K2 recomputes QK^T, computes
+    dO V^T, P^T dO and dS^T Q (8 d per pair); K3 QK^T, dO V^T and dS K
+    (6 d per pair). Bytes: q, k, v, dO read once, lse and D (f32 rows)
+    read once, and K2's dk, dv or K3's dq written once."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    tile = hb * seq * d * itemsize
+    rows = 2 * hb * seq * 4
+    pairs = hb * _pairs(seq, causal)
+    return {"flash_bwd_dkv": _bound(8.0 * d * pairs, 6 * tile + rows, dtype),
+            "flash_bwd_dq": _bound(6.0 * d * pairs, 5 * tile + rows, dtype)}
 
 
 def check_flash_fwd(torch, fa, dev):
@@ -150,6 +193,167 @@ def check_flash_fwd(torch, fa, dev):
         "ok": all(c["ok"] for c in checks),
         "checks": len(checks),
     }
+
+
+def _grad_err(out, ref, dt: str) -> dict:
+    """How far a kernel's gradient is from its plain version: max |d|, that
+    over max(max |ref|, 1), |d| / |ref| in the L2 norm (|ref| no smaller
+    than the absolute term's norm, for gradients that vanish), and
+    `tol_ratio`, the largest |d| / (atol + rtol |ref|) over the elements
+    (held to <= 1)."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    scale = max(ref.abs().max().item(), 1.0)
+    atol = GRAD_ATOL[dt] * scale
+    bar = atol + GRAD_RTOL[dt] * ref.abs()
+    err = diff.max().item()
+    ref_norm = max(ref.norm().item(), atol * ref.numel() ** 0.5)
+    return dict(max_abs_err=err, max_rel_err=err / scale,
+                rel_l2_err=diff.norm().item() / ref_norm,
+                tol_ratio=(diff / bar).max().item())
+
+
+def check_flash_bwd(torch, fa, dev):
+    """Phase 3 for K2 and K3: every shape against the plain versions, with
+    o and lse from K1 as on the training path; times at the training
+    shape. Returns the two kernels' JSON entries (launches filled later)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(dev).manual_seed(1)
+    shapes = [(128, 2048, 128, "bfloat16", True)]            # training path
+    shapes += [(2, seq, d, dt, causal) for seq in (1, 96, 200)
+               for d in (16, 128) for dt in ("bfloat16", "float32")
+               for causal in (True, False)]
+    errs = {"flash_bwd_dkv": [], "flash_bwd_dq": []}
+    for hb, seq, d, dt, causal in shapes:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+        di = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        fa.launch_bwd(q, k, v, do, lse, di, None, dk, dv, scale, causal)
+        fa.launch_bwd(q, k, v, do, lse, di, dq, None, None, scale, causal)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di, scale,
+                                                causal)
+        err_dk = _grad_err(dk, ref_dk, dt)
+        err_dv = _grad_err(dv, ref_dv, dt)
+        err_dkv = {key: max(err_dk[key], err_dv[key]) for key in err_dk}
+        del ref_dk, ref_dv
+        err_dq = _grad_err(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, di,
+                                                     scale, causal), dt)
+        torch.cuda.empty_cache()
+        for name, err in (("flash_bwd_dkv", err_dkv),
+                          ("flash_bwd_dq", err_dq)):
+            ok = err["tol_ratio"] <= 1.0 and all(
+                bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+            line = dict(kernel=name, hb=hb, seq=seq, d=d, dtype=dt,
+                        causal=causal, **err, rtol=GRAD_RTOL[dt],
+                        atol_of_max=GRAD_ATOL[dt], ok=ok)
+            print(json.dumps(line), flush=True)
+            errs[name].append(line)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {line}")
+
+    hb, seq, d, dt, causal = shapes[0]
+    q, k, v, do = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+    di = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ms = {"flash_bwd_dkv": _cuda_ms(torch, lambda: fa.launch_bwd(
+              q, k, v, do, lse, di, None, dk, dv, scale, causal), 10),
+          "flash_bwd_dq": _cuda_ms(torch, lambda: fa.launch_bwd(
+              q, k, v, do, lse, di, dq, None, None, scale, causal), 10)}
+    plain_ms = {"flash_bwd_dkv": _cuda_ms(torch, lambda: fa.flash_bwd_dkv_plain(
+                    q, k, v, do, lse, di, scale, causal), 3),
+                "flash_bwd_dq": _cuda_ms(torch, lambda: fa.flash_bwd_dq_plain(
+                    q, k, v, do, lse, di, scale, causal), 3)}
+    torch.cuda.empty_cache()
+    # yardstick: SDPA's backward computes dq, dk and dv together, so it is
+    # one figure for K2 + K3
+    b = 8
+    q4, k4, v4 = (t.view(b, hb // b, seq, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(b, hb // b, seq, d)
+    library_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), 10)
+    del out4
+    bounds = bwd_bounds(hb, seq, d, dt, causal)
+    entries = []
+    for name, line, replaces in (
+            ("flash_bwd_dkv", "K2",
+             "tpu_device_plugin/validator/flash_attention.py:196"),
+            ("flash_bwd_dq", "K3",
+             "tpu_device_plugin/validator/flash_attention.py:236")):
+        bound_ms, bound_by = bounds[name]
+        print(json.dumps(dict(kernel=name, hb=hb, seq=seq, d=d, dtype=dt,
+                              ms=ms[name], plain_ms=plain_ms[name],
+                              library_ms_k2_plus_k3=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)),
+              flush=True)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_device_plugin_torch/validator/csrc/flash_bwd.cu",
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": errs[name][0]["max_abs_err"],
+            "max_rel_err": errs[name][0]["max_rel_err"],
+            "rel_l2_err": errs[name][0]["rel_l2_err"],
+            "tol_ratio": errs[name][0]["tol_ratio"],
+            "ms": ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_is": "SDPA backward: dq, dk and dv, K2 + K3 together",
+            "ok": all(c["ok"] for c in errs[name]),
+            "checks": len(errs[name]),
+        })
+    return entries
+
+
+def _reset(fa):
+    for name in fa.launches:
+        fa.launches[name] = 0
+
+
+def compare_steps(torch, fa, cfg, dev) -> dict:
+    """One training step's loss and gradients through the kernels and
+    through their plain versions, on the same weights and tokens."""
+    from tpu_device_plugin_torch.validator import workload
+    _, params, _, tokens = workload.build_workload(cfg, seed=0,
+                                                   attention="flash",
+                                                   device=dev)
+    _reset(fa)
+    loss, grads = workload.value_and_grad(params, tokens, cfg, "flash")
+    expected = dict.fromkeys(fa.launches, cfg.n_layers)
+    if fa.launches != expected:
+        raise AssertionError(f"kernel step launched {fa.launches}, "
+                             f"expected {expected}")
+    # the flash Function, routed through the plain versions
+    with mock.patch.object(fa, "flash_attention_fwd", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              fa.flash_attention_bwd_plain):
+        ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
+    if fa.launches != expected:
+        raise AssertionError(f"plain step launched a kernel: {fa.launches}")
+    rel = {}
+    for (key, g), r in zip(workload._named_leaves(grads),
+                           workload._leaves(ref)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient for {key}")
+        rel[key] = ((g - r).abs().max() / r.abs().max()).item()
+    del grads, ref, params
+    torch.cuda.empty_cache()
+    return dict(loss=loss.item(), plain_loss=ref_loss.item(),
+                loss_diff=abs(loss.item() - ref_loss.item()),
+                max_grad_rel=max(rel.values()), grad_rel=rel)
 
 
 def compare_forwards(torch, fa, cfg, dev) -> dict:
@@ -214,22 +418,46 @@ def main() -> int:
                 print(f"  {kernel}: {ln.strip()}")
 
     # 3. kernels against their plain versions
-    entries = [check_flash_fwd(torch, fa, dev)]
+    entries = [check_flash_fwd(torch, fa, dev), *check_flash_bwd(torch, fa, dev)]
+    torch.cuda.empty_cache()
 
-    # 4. the serving path at the mfu preset, counted
+    # 4. the serving and the training path at the mfu preset, counted
     cfg = ModelConfig(**PRESETS["mfu"])
-    fa.launches = 0
+    _reset(fa)
     report = validate_slice(cfg=cfg, steps=5, attention="flash", mode="infer",
                             device="cuda")
-    launches = fa.launches
+    infer_launches = dict(fa.launches)
     print(report.to_json(), flush=True)
     if not report.ok:
         raise AssertionError(f"validate_slice(mfu, infer) not ok: {report.error}")
-    if report.forwards <= 0 or launches != cfg.n_layers * report.forwards:
+    expected = {"flash_fwd": cfg.n_layers * report.forwards,
+                "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if report.forwards <= 0 or infer_launches != expected:
         raise AssertionError(
-            f"flash_fwd launched {launches} times in {report.forwards} "
-            f"forwards; expected {cfg.n_layers} per forward")
-    entries[0]["launches"] = launches
+            f"serving launches {infer_launches} in {report.forwards} "
+            f"forwards; expected {expected}")
+    torch.cuda.empty_cache()
+
+    _reset(fa)
+    report = validate_slice(cfg=cfg, steps=3, attention="flash", mode="train",
+                            device="cuda")
+    train_launches = dict(fa.launches)
+    print(report.to_json(), flush=True)
+    if not report.ok or not report.loss_end < report.loss_start:
+        raise AssertionError(f"validate_slice(mfu, train) not ok: {report.error}")
+    expected = dict.fromkeys(fa.launches, cfg.n_layers * report.steps)
+    if report.steps <= 0 or train_launches != expected:
+        raise AssertionError(
+            f"training launches {train_launches} in {report.steps} steps; "
+            f"expected {cfg.n_layers} of each kernel per step")
+    print(json.dumps({"launches": {"infer": infer_launches,
+                                   "train": train_launches}}), flush=True)
+    for entry in entries:
+        entry["launches"] = (infer_launches[entry["name"]]
+                             + train_launches[entry["name"]])
+        entry["launches_by_path"] = {"infer": infer_launches[entry["name"]],
+                                     "train": train_launches[entry["name"]]}
+    torch.cuda.empty_cache()
 
     # the logits, against the same forward through the kernel's plain version
     for label, forward_cfg, argmax_min in (
@@ -243,6 +471,17 @@ def main() -> int:
                 or line["argmax_agreement"] < argmax_min):
             raise AssertionError(f"{label}: kernel forward disagrees with "
                                  "the plain-attention forward")
+
+    # one training step's loss and gradients, against the plain versions
+    for label, step_cfg in (("small", ModelConfig(**SMALL)), ("mfu", cfg)):
+        line = compare_steps(torch, fa, step_cfg, dev)
+        line.update(check=f"{label} training step: kernels vs plain versions",
+                    grad_rel_tol=STEP_GRAD_REL_TOL, loss_tol=STEP_LOSS_TOL)
+        print(json.dumps(line), flush=True)
+        if (line["max_grad_rel"] > STEP_GRAD_REL_TOL
+                or line["loss_diff"] > STEP_LOSS_TOL):
+            raise AssertionError(f"{label}: the training step through the "
+                                 "kernels disagrees with the plain versions")
 
     # 5. results
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,0 +1,150 @@
+"""Port parity: the flash-attention backward of tpu_device_plugin_torch vs JAX.
+
+The JAX side is `_flash_bwd_3d`, its two Pallas backward kernels in
+interpret mode on the CPU; the port's side is `flash_attention_bwd_plain`,
+the plain version of its K2 and K3 kernels, which is also what the
+wrapper gives a CPU tensor. Both get the same q, k, v, dO (numpy, from a
+seed) and the same o and lse (the port's plain forward in f32; the JAX
+kernels read lse lane-replicated to 128, the port as (heads_batch, seq)).
+
+Tolerances are the JAX tests' own (tests/test_flash_attention.py): f32
+< 1e-4 (summation order only) and bf16 < 1e-1 (the JAX kernels round P
+and dS to bf16 before the dV, dK and dQ products; the port stays in f32).
+
+The CUDA kernels run only on a card: tests/test_torch_gpu.py holds them
+against the plain version there.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from tpu_device_plugin.validator import flash_attention as jfa  # noqa: E402
+from tpu_device_plugin_torch.validator import flash_attention as tfa  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _small_torch_pool():
+    """The suite runs files side by side (xdist); a small intra-op pool
+    keeps torch's busy threads from starving the timing-based tests in
+    the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def arrays(hb, seq, d, seed, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((hb, seq, d), dtype=np.float32)
+            for _ in range(n)]
+
+
+def to_jax(a, dtype):
+    return jnp.asarray(a).astype(dtype)
+
+
+def to_torch(a, dtype):
+    return torch.from_numpy(np.asarray(a)).to(getattr(torch, dtype))
+
+
+def as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block", [(96, 64), (128, 32), (64, 128)])
+def test_plain_backward_matches_jax_kernels(dtype, d, causal, seq, block):
+    q, k, v, do = (to_torch(a, dtype) for a in arrays(2, seq, d, seq + d))
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
+    grads = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
+                            (*lse.shape, jfa.LANES))
+    jdtype = getattr(jnp, dtype)
+    ref = jfa._flash_bwd_3d(*(to_jax(as_np(t), jdtype) for t in (q, k, v, o)),
+                            jlse, to_jax(as_np(do), jdtype), scale, causal,
+                            block, block, True)
+    for g, r in zip(grads, ref):
+        assert g.dtype == q.dtype and g.shape == q.shape
+        assert np.max(np.abs(as_np(g) - as_np(r))) < TOL[dtype]
+
+
+def test_plain_backward_out_dtype():
+    q, k, v, do = (to_torch(a, "bfloat16") for a in arrays(2, 64, 16, 1))
+    o, lse = tfa.flash_attention_plain(q, k, v, 0.25, True, True)
+    grads = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, 0.25, True,
+                                          out_dtype=torch.float32)
+    assert all(g.dtype == torch.float32 for g in grads)
+    # the CPU wrapper is the plain version
+    same = tfa.flash_attention_bwd(q, k, v, o, lse, do, 0.25, True,
+                                   out_dtype=torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(grads, same))
+
+
+@pytest.mark.parametrize("causal,seq,block", [(True, 64, 32), (True, 96, 64),
+                                              (False, 128, 64)])
+def test_gradients_through_the_function_match_jax(causal, seq, block):
+    """jax.grad of sum(o^2) through the JAX custom_vjp (Pallas forward and
+    backward, interpret mode) against autograd through the port's
+    `_FlashAttention` on CPU tensors (plain forward, plain backward)."""
+    d = 32
+    q, k, v = arrays(2, seq, d, 3 + seq, n=3)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = dict(tfa.launches)
+    (tfa.flash_attention(tq, tk, tv, None, causal) ** 2).sum().backward()
+    assert tfa.launches == before   # the CPU never launches a kernel
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jfa.flash_attention(q_, k_, v_, None, causal, block,
+                                           block, True) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for t, r in zip((tq, tk, tv), ref):
+        assert np.max(np.abs(t.grad.numpy() - np.asarray(r))) < 1e-4
+
+
+def test_function_returns_lse_without_gradient():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in arrays(2, 32, 16, 9, n=3))
+    o, lse = tfa.flash_attention(q, k, v, None, True, return_lse=True)
+    assert o.requires_grad and not lse.requires_grad
+    ref_o, ref_lse = tfa.flash_attention_plain(q.detach(), k.detach(),
+                                               v.detach(), 0.25, True, True)
+    assert torch.equal(o.detach(), ref_o) and torch.equal(lse, ref_lse)
+    # strided upstream gradient, as from the heads unfold's transpose
+    g = torch.randn(2, 16, 32).transpose(1, 2)
+    o.backward(g)
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+
+
+def test_backward_input_checks():
+    q = torch.zeros((2, 64, 32))
+    with pytest.raises(ValueError, match="one shape"):
+        tfa._check_kernel_inputs(q, q, q, torch.zeros((2, 64, 16)))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._check_kernel_inputs(q, q, q, torch.zeros((2, 32, 64)).transpose(1, 2))
+    meta = torch.empty((2, 64, 32), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.flash_attention_bwd(meta, meta, meta, meta, None, meta, 1.0, True)
+
+
+def test_launch_bwd_output_checks():
+    """K2/K3 write q's dtype or f32, never bf16 from f32 inputs; refused
+    before any kernel is looked up."""
+    q = torch.zeros((2, 64, 32))
+    rows = torch.zeros((2, 64))
+    bf16 = torch.zeros((2, 64, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q's dtype or f32"):
+        tfa.launch_bwd(q, q, q, q, rows, rows, bf16, None, None, 1.0, True)
+    with pytest.raises(ValueError, match="dk and dv"):
+        tfa.launch_bwd(q, q, q, q, rows, rows, None, q, None, 1.0, True)

@@ -4,10 +4,18 @@ Each skips without a CUDA card; on one, run them with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
-This file imports no JAX, so it runs where only PyTorch is installed. The
+This file imports no JAX, so it runs where only PyTorch is installed. Each
 kernel is held against its plain PyTorch version on the same inputs:
-max |do| <= 2e-2 in bf16 (output rounding, 2^-8 relative) and <= 1e-4 in
-f32 (summation order only), |dlse| <= 1e-3.
+
+- K1: max |do| <= 2e-2 in bf16 (output rounding, 2^-8 relative) and
+  <= 1e-4 in f32 (summation order only), |dlse| <= 1e-3.
+- K2, K3: element by element, |dg| <= GRAD_ATOL x max(max |g|, 1)
+  + GRAD_RTOL x |g|. Both compute in f32 from the same inputs, lse and D;
+  two bf16 outputs rounded from nearly equal f32 values differ by at most
+  one ulp, 2^-7 of |g|; f32 outputs differ only by summation order. The
+  absolute term is for elements near 0, where only f32 summation noise is
+  left, and for gradients that vanish: at seq 1 softmax has one key, and
+  dq and dk are rounding noise around 0.
 """
 
 import numpy as np
@@ -19,6 +27,10 @@ from tpu_device_plugin_torch.validator import workload
 
 O_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-3
+GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -7}
+GRAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
+             seq_len=96, batch=2)
 
 
 @pytest.fixture
@@ -28,11 +40,25 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def inputs(hb, seq, d, dtype, device, seed=0):
+def inputs(hb, seq, d, dtype, device, seed=0, n=3):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((hb, seq, d),
                                                  dtype=np.float32))
-            .to(device=device, dtype=getattr(torch, dtype)) for _ in range(3)]
+            .to(device=device, dtype=getattr(torch, dtype)) for _ in range(n)]
+
+
+def rel_err(out, ref):
+    """max |out - ref| / max |ref|"""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def grad_close(out, ref, dtype) -> bool:
+    """Every element within GRAD_ATOL x max(max |ref|, 1) + GRAD_RTOL x |ref|."""
+    out, ref = out.float(), ref.float()
+    scale = max(ref.abs().max().item(), 1.0)
+    bar = GRAD_ATOL[dtype] * scale + GRAD_RTOL[dtype] * ref.abs()
+    return bool(((out - ref).abs() <= bar).all())
 
 
 @pytest.mark.gpu
@@ -42,10 +68,10 @@ def inputs(hb, seq, d, dtype, device, seed=0):
 @pytest.mark.parametrize("seq", [1, 96, 200])
 def test_kernel_matches_plain(cuda_device, dtype, d, causal, seq):
     q, k, v = inputs(3, seq, d, dtype, cuda_device, seed=d + seq)
-    before = fa.launches
+    before = fa.launches["flash_fwd"]
     o, lse = fa.flash_attention(q, k, v, None, causal, True)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches["flash_fwd"] == before + 1
     assert o.dtype == q.dtype and lse.shape == (3, seq)
     ref_o, ref_lse = fa.flash_attention_plain(q, k, v, d ** -0.5, causal, True)
     assert (o.float() - ref_o.float()).abs().max().item() <= O_TOL[dtype]
@@ -53,12 +79,67 @@ def test_kernel_matches_plain(cuda_device, dtype, d, causal, seq):
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_grad_and_bad_inputs(cuda_device):
-    q = torch.zeros((2, 64, 32), device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(q, q, q)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [1, 96, 200])
+def test_backward_kernels_match_plain(cuda_device, dtype, d, causal, seq):
+    q, k, v, do = inputs(3, seq, d, dtype, cuda_device, seed=d + seq, n=4)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale, causal, True)
+    before = dict(fa.launches)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == q.dtype and g.shape == q.shape
+        assert torch.isfinite(g).all(), name
+        assert grad_close(g, ref, dtype), name
+
+
+@pytest.mark.gpu
+def test_backward_kernels_f32_out_and_one_pass_alone(cuda_device):
+    """out_dtype f32 from bf16 inputs, and K2 / K3 launched alone."""
+    q, k, v, do = inputs(2, 200, 64, "bfloat16", cuda_device, seed=1, n=4)
+    scale = 64 ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale, True, True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, scale, True,
+                                   out_dtype=torch.float32)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, True,
+                                        out_dtype=torch.float32)
+    for g, ref in zip(grads, refs):
+        assert g.dtype == torch.float32
+        assert grad_close(g, ref, "float32")
+    di = (do.float() * o.float()).sum(-1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=cuda_device)
+    before = dict(fa.launches)
+    fa.launch_bwd(q, k, v, do, lse, di, dq, None, None, scale, True)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"]
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert torch.equal(dq, grads[0])
+    with pytest.raises(ValueError, match="dk and dv"):
+        fa.launch_bwd(q, k, v, do, lse, di, None, dq, None, scale, True)
+
+
+@pytest.mark.gpu
+def test_grad_goes_through_the_kernels(cuda_device):
+    q, k, v = (t.requires_grad_() for t in
+               inputs(2, 64, 32, "float32", cuda_device, seed=2))
+    before = dict(fa.launches)
+    loss = (fa.flash_attention(q, k, v) ** 2).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    for name in fa.launches:
+        assert fa.launches[name] == before[name] + 1, name
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    (fa._reference_attention(qr, kr, vr, 32 ** -0.5, True) ** 2).sum().backward()
+    for g, ref in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        assert (g - ref).abs().max().item() < 1e-4
     with torch.no_grad():
-        fa.flash_attention(q, q, q)   # inference under no_grad is fine
+        fa.flash_attention(q, k, v)   # inference under no_grad: K1 only
     bad = torch.zeros((2, 64, 48), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(bad, bad, bad)
@@ -66,13 +147,40 @@ def test_kernel_refuses_grad_and_bad_inputs(cuda_device):
 
 @pytest.mark.gpu
 def test_serving_forward_goes_through_the_kernel(cuda_device):
-    cfg = workload.ModelConfig(vocab=64, d_model=64, n_heads=4, d_ff=128,
-                               n_layers=2, seq_len=96, batch=2)
+    cfg = workload.ModelConfig(**SMALL)
     fwd, params, tokens = workload.build_infer(cfg, device=cuda_device)
-    before = fa.launches
+    before = fa.launches["flash_fwd"]
     logits = fwd(params, tokens)
-    assert fa.launches == before + cfg.n_layers   # auto picks flash on CUDA
+    assert fa.launches["flash_fwd"] == before + cfg.n_layers   # auto: flash
     einsum = workload.forward(params, tokens, cfg, "einsum")
     assert logits.shape == (2, 96, 64) and torch.isfinite(logits).all()
     rel = ((logits - einsum).abs().max() / einsum.abs().max()).item()
     assert rel <= 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_step_goes_through_the_kernels(cuda_device, remat):
+    cfg = workload.ModelConfig(**SMALL, remat=remat)
+    step, params, momentum, tokens = workload.build_workload(
+        cfg, device=cuda_device)
+    before = dict(fa.launches)
+    losses = [step(params, momentum, tokens)[2].item() for _ in range(3)]
+    per_step = {"flash_fwd": cfg.n_layers * (2 if remat else 1),
+                "flash_bwd_dkv": cfg.n_layers, "flash_bwd_dq": cfg.n_layers}
+    for name, n in per_step.items():
+        assert fa.launches[name] == before[name] + 3 * n, name
+    assert losses[-1] < losses[0]
+    # the same step's gradients through the plain versions (CPU)
+    cpu_params = workload.init_params(torch.Generator().manual_seed(0), cfg,
+                                      "cpu")
+    gpu_params = {"embed": cpu_params["embed"].to(cuda_device),
+                  "unembed": cpu_params["unembed"].to(cuda_device),
+                  "layers": {k: w.to(cuda_device)
+                             for k, w in cpu_params["layers"].items()}}
+    loss, grads = workload.value_and_grad(gpu_params, tokens, cfg, "flash")
+    ref_loss, ref = workload.value_and_grad(cpu_params, tokens.cpu(), cfg,
+                                            "flash")
+    assert abs(loss.item() - ref_loss.item()) < 1e-3
+    for g, r in zip(workload._leaves(grads), workload._leaves(ref)):
+        assert rel_err(g.cpu(), r) <= 0.03

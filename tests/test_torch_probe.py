@@ -20,7 +20,8 @@ TINY = ModelConfig(vocab=32, d_model=32, n_heads=2, d_ff=64, n_layers=2,
 
 
 def test_validate_slice_infer_on_cpu():
-    report = probe.validate_slice(cfg=TINY, steps=2, device="cpu")
+    report = probe.validate_slice(cfg=TINY, steps=2, mode="infer",
+                                  device="cpu")
     assert report.ok, report.error
     assert report.platform == "cpu" and report.device_kinds == ["cpu"]
     assert report.infer_p50_ms > 0 and report.infer_p99_ms >= report.infer_p50_ms
@@ -37,15 +38,72 @@ def test_validate_slice_counts_kernel_path_forwards(monkeypatch):
     """flash mode on CPU tensors: the plain version, never the kernel."""
     from tpu_device_plugin_torch.validator import flash_attention as fa
     monkeypatch.setattr(probe, "_microbench", lambda dev, m=None: (1.0, 1.0))
-    before = fa.launches
+    before = dict(fa.launches)
     report = probe.validate_slice(cfg=TINY, steps=1, attention="flash",
-                                  device="cpu")
+                                  mode="infer", device="cpu")
     assert report.ok, report.error
+    assert report.forwards > 0 and report.steps == 0
     assert fa.launches == before
 
 
+def test_validate_slice_train_on_cpu():
+    """The default mode trains; flash on CPU tensors runs the plain forward
+    and backward, never a kernel."""
+    from tpu_device_plugin_torch.validator import flash_attention as fa
+    before = dict(fa.launches)
+    report = probe.validate_slice(cfg=TINY, steps=2, attention="flash",
+                                  device="cpu")
+    assert report.ok, report.error
+    assert report.loss_end < report.loss_start
+    # the first step, then blocks of N and 2N
+    assert report.steps == 1 + 2 + 4 and report.forwards == 0
+    assert report.step_time_s > 0 and report.first_step_s > 0
+    assert report.tflops_per_chip == pytest.approx(
+        probe._workload_flops(TINY) / report.step_time_s / 1e12)
+    # no peak for the CPU: no MFU
+    assert report.mfu == 0 and report.peak_tflops == 0
+    assert fa.launches == before
+
+
+def test_train_step_time_falls_back_to_the_block_mean(monkeypatch):
+    """A noisy host can make the 2N-step block no slower than the N-step
+    one; the step time is then the 2N block's mean, never 0."""
+    ticks = iter([0.0, 10.0, 13.0, 20.0, 22.0])  # first step, N, 2N blocks
+    monkeypatch.setattr(probe.time, "monotonic", lambda: next(ticks))
+    report = probe.SliceReport(ok=False)
+    probe._train(report, TINY, 1, "einsum", torch.device("cpu"))
+    assert report.step_time_s == pytest.approx(2.0 / 2)
+    assert report.tflops_per_chip == pytest.approx(
+        probe._workload_flops(TINY) / 1.0 / 1e12)
+
+
+def test_training_that_does_not_learn_fails(monkeypatch):
+    from tpu_device_plugin_torch.validator import workload
+    real = workload.sgd_step
+
+    def frozen(params, momentum, tokens, cfg, attention="einsum"):
+        _, _, loss = real(params, momentum, tokens, cfg, attention)
+        return params, momentum, loss * 0 + 7.0
+    monkeypatch.setattr(workload, "sgd_step", frozen)
+    monkeypatch.setattr(probe, "_microbench", lambda dev, m=None: (1.0, 1.0))
+    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    assert not report.ok and "loss did not decrease" in report.error
+
+
+def test_impossible_train_mfu_vetoes(monkeypatch):
+    """A training rate above 1.05x the datasheet peak refuses the run."""
+    monkeypatch.setattr(probe, "_microbench",
+                        lambda dev, m=None: (500.0, 100.0))
+    monkeypatch.setattr(peaks, "lookup", lambda name: peaks.PEAKS["h100-sxm5"])
+    monkeypatch.setattr(probe, "_workload_flops", lambda cfg: 1e18)
+    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    assert report.mfu > peaks.SUSPECT_FACTOR
+    assert report.perf_suspect and not report.ok
+    assert "train MFU" in report.error
+
+
 def test_unported_mode_is_a_config_error():
-    report = probe.validate_slice(cfg=TINY, mode="train", device="cpu")
+    report = probe.validate_slice(cfg=TINY, mode="attn-bench", device="cpu")
     assert report.invalid_config and not report.ok
     assert "not yet ported" in report.error
 
@@ -61,7 +119,8 @@ def test_microbench_failure_never_vetoes(monkeypatch):
     def boom(device, min_diff_s=None):
         raise RuntimeError("microbench exploded")
     monkeypatch.setattr(probe, "_microbench", boom)
-    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    report = probe.validate_slice(cfg=TINY, steps=1, mode="infer",
+                                  device="cpu")
     assert report.ok
     assert "microbench skipped" in report.error
 
@@ -72,21 +131,37 @@ def test_impossible_microbench_vetoes(monkeypatch):
     monkeypatch.setattr(probe, "_microbench",
                         lambda dev, m=None: (2000.0, 100.0))
     monkeypatch.setattr(peaks, "lookup", lambda name: peaks.PEAKS["h100-sxm5"])
-    report = probe.validate_slice(cfg=TINY, steps=1, device="cpu")
+    report = probe.validate_slice(cfg=TINY, steps=1, mode="infer",
+                                  device="cpu")
     assert report.perf_suspect and not report.ok
     assert "exceeds datasheet peak" in report.error
     assert report.peak_tflops == 989.0
 
 
 def test_main_exit_code_zero_on_cpu(capsys):
-    rc = probe.main(["--device", "cpu", "--steps", "1", "--seq-len", "32"])
+    rc = probe.main(["--mode", "infer", "--device", "cpu", "--steps", "1",
+                     "--seq-len", "32"])
     out = capsys.readouterr().out.strip().splitlines()[-1]
     assert rc == 0
     assert json.loads(out)["ok"] is True
 
 
+@pytest.mark.parametrize("argv", [["--mode", "train"], [], ["--remat"]])
+def test_main_train_exit_code_zero_on_cpu(argv, capsys):
+    rc = probe.main(argv + ["--device", "cpu", "--steps", "1",
+                            "--seq-len", "32"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and report["ok"] is True
+    assert report["steps"] == 4 and report["loss_end"] < report["loss_start"]
+
+
+def test_workload_flops_at_mfu():
+    cfg = ModelConfig(**probe.PRESETS["mfu"])
+    assert probe._workload_flops(cfg) == pytest.approx(42.984e12, rel=1e-4)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "train"], "item 2"),
+    (["--mode", "infer", "--sp", "2"], "item 3"),
     (["--mode", "attn-bench"], "item 7"),
     (["--mode", "ring-bench"], "item 7"),
     (["--tp", "2"], "item 3"),
@@ -104,7 +179,8 @@ def test_main_rejects_unported_with_exit_2(argv, match, capsys):
 
 def test_main_exit_code_one_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert probe.main(["--steps", "1"]) == 1
+    assert probe.main(["--mode", "infer", "--steps", "1"]) == 1
+    assert probe.main(["--steps", "1"]) == 1   # train, the default
 
 
 def test_presets_match_jax_package():
@@ -170,7 +246,8 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_nor_the_jax_package():
     files = sorted((REPO / "tpu_device_plugin_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py"]
+    assert REPO / "tpu_device_plugin_torch" / "entry.py" in files
     assert len(files) > 5
     for path in files:
         for name in _imports(path):

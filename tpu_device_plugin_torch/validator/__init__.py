@@ -3,14 +3,16 @@
 The host plugin's job ends when a VMI boots with its VFIO groups attached;
 proof that the slice actually *works* comes from inside the guest. This
 package is that proof on an NVIDIA card: it enumerates the CUDA device and
-runs a transformer forward whose attention goes through a hand-written
-flash-attention kernel (csrc/flash_fwd.cu). Run it in the guest:
+trains (or serves) a transformer whose attention goes through hand-written
+flash-attention kernels (csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
+backward). Run it in the guest:
 
-    python -m tpu_device_plugin_torch.validator --mode infer --preset mfu
+    python -m tpu_device_plugin_torch.validator --mode train --preset mfu
 
-It reports the serving latency percentiles, tokens/s and the card's matmul
-and memory microbench against its datasheet peak. Training, the mesh and
-the benches are ported in later slices (ROADMAP.md, Queue 1).
+It reports the training step time, TFLOP/s and MFU (or, with
+`--mode infer`, the serving latency percentiles and tokens/s) and the
+card's matmul and memory microbench against its datasheet peak. The mesh
+and the benches are ported in later slices (ROADMAP.md, Queue 1).
 """
 
-from .workload import ModelConfig, build_infer  # noqa: F401
+from .workload import ModelConfig, build_infer, build_workload  # noqa: F401

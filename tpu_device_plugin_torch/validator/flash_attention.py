@@ -1,17 +1,24 @@
-"""Flash-attention forward — the burn-in's hot op, on a hand-written CUDA kernel.
+"""Flash attention — the burn-in's hot op, on hand-written CUDA kernels.
 
-Port of the forward half of `tpu_device_plugin/validator/flash_attention.py`.
-Causal (or full) multi-head attention over (heads_batch, seq, head_dim)
-tensors, computed blockwise with the online-softmax recurrence so the
-(S, S) score matrix never reaches device memory. The kernel is
-`csrc/flash_fwd.cu` (built and loaded by `_kernels`); its plain PyTorch
-version, `flash_attention_plain`, computes the same function in f32 and is
-what a CPU tensor gets.
+Port of `tpu_device_plugin/validator/flash_attention.py`. Causal (or full)
+multi-head attention over (heads_batch, seq, head_dim) tensors, computed
+blockwise so the (S, S) score matrix never reaches device memory, in
+either direction:
 
-The TPU version's `block_q`/`block_k` were VMEM tile choices; the CUDA
-kernel's tiles are its own compile-time constants, so they are not
-arguments here. The backward (the TPU version's `custom_vjp` with two
-Pallas kernels) is not ported yet: ROADMAP.md, Queue 1, item 2.
+- the forward (K1, `csrc/flash_fwd.cu`) runs the online-softmax
+  recurrence and can store the per-row logsumexp;
+- the backward (K2 and K3, `csrc/flash_bwd.cu`) recomputes P per tile from
+  (q, k, lse) in the FlashAttention-2 two-pass shape: one pass
+  accumulates (dk, dv) per key tile, one accumulates dq per query tile.
+
+`flash_attention` is differentiable through `_FlashAttention`, the
+counterpart of the TPU version's `custom_vjp`. Each kernel has a plain
+PyTorch version computed in f32 (`flash_attention_plain`,
+`flash_bwd_dkv_plain`, `flash_bwd_dq_plain`), which is what a CPU tensor
+gets; a CUDA tensor launches the kernel or raises, never falls back.
+
+The TPU version's block sizes were VMEM tile choices; the CUDA kernels'
+tiles are their own compile-time constants, so they are not arguments.
 """
 
 from __future__ import annotations
@@ -23,66 +30,113 @@ import torch
 
 NEG_INF = -1e30
 
-# head dims the CUDA kernel is instantiated for (csrc/flash_fwd.cu)
+# head dims the CUDA kernels are instantiated for (csrc/*.cu)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# CUDA kernel launches since import (or since the caller last reset it);
-# a run reads it to show its attention went through the kernel
-launches = 0
+# CUDA kernel launches per kernel since import (or since the caller last
+# reset them); a run reads them to show it went through the kernels
+launches = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 def _reference_attention(q, k, v, sm_scale: float, causal: bool):
     """Plain einsum attention. Shapes: q, k, v are (heads_batch, seq, head_dim)."""
     s = torch.einsum("bqd,bkd->bqk", q, k).float() * sm_scale
     if causal:
-        seq = q.shape[1]
-        mask = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_causal_mask(q.shape[1], q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
+def _causal_mask(seq: int, device) -> torch.Tensor:
+    return torch.ones((seq, seq), dtype=torch.bool, device=device).tril()
+
+
 def flash_attention_plain(q, k, v, sm_scale: float, causal: bool,
                           return_lse: bool = False):
-    """The kernel's function in plain PyTorch, computed in f32.
+    """K1's function in plain PyTorch, computed in f32.
 
     Returns `o` in q's dtype and, with `return_lse`, the per-row logsumexp
     of the scaled, masked scores as f32 (heads_batch, seq)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
     if causal:
-        seq = q.shape[1]
-        mask = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_causal_mask(q.shape[1], q.device), s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]), vf)
     o = o.to(q.dtype)
     return (o, lse) if return_lse else o
 
 
-def _flash_fwd_fn():
+def _p_ds(q, k, v, do, lse, di, sm_scale: float, causal: bool):
+    """P and dS of the FlashAttention-2 backward, f32, zero where masked."""
+    qf, kf = q.float(), k.float()
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dp - di[..., None]) * sm_scale
+    if causal:
+        mask = _causal_mask(q.shape[1], q.device)
+        p = torch.where(mask, p, 0.0)
+        ds = torch.where(mask, ds, 0.0)
+    return p, ds
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
+    """K2's function in plain PyTorch: (dk, dv) in f32, from the f32
+    (heads_batch, seq) lse and D = rowsum(dO * O)."""
+    p, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal)
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    return dk, dv
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
+    """K3's function in plain PyTorch: dq in f32."""
+    _, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal)
+    return torch.einsum("bqk,bkd->bqd", ds, k.float())
+
+
+def _row_dot(do, o) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, from the saved output as the TPU version
+    computes it (flash_attention.py:286-290)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float,
+                              causal: bool, out_dtype=None):
+    """The backward in plain PyTorch: (dq, dk, dv) in `out_dtype`
+    (default: the inputs' dtype), computed in f32."""
+    di = _row_dot(do, o)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale, causal)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, di, sm_scale, causal)
+    out_dtype = out_dtype or q.dtype
+    return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
+
+
+def _kernel_fn(lib_name: str, n_ptrs: int, n_ints: int):
     from . import _kernels
-    lib = _kernels.library("flash_fwd")
-    fn = lib.flash_fwd
+    fn = getattr(_kernels.library(lib_name), lib_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_inputs(q, k, v):
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+def _check_kernel_inputs(q, *others):
+    tensors = (q, *others)
+    if q.dim() != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(
-            "flash_attention takes q, k, v of one shape (heads_batch, seq, "
-            f"head_dim); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+            "flash_attention takes q, k, v (and dO) of one shape (heads_batch, "
+            f"seq, head_dim); got {[tuple(t.shape) for t in tensors]}")
+    if any(t.dtype != q.dtype for t in others) or q.dtype not in _DTYPE_CODE:
         raise ValueError("flash_attention kernel takes float32 or bfloat16 "
-                         f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
+                         "tensors of one dtype; got "
+                         f"{[t.dtype for t in tensors]}")
+    if any(t.device != q.device for t in others):
         raise ValueError("q, k, v must be on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention kernel needs contiguous q, k, v "
                          "(call .contiguous() after folding heads)")
     hb, seq, d = q.shape
@@ -94,32 +148,27 @@ def _check_kernel_inputs(q, k, v):
                          f"65535 and seq > 0; got {hb}, {seq}")
 
 
-def flash_attention(q, k, v, sm_scale: Optional[float] = None,
-                    causal: bool = True, return_lse: bool = False):
-    """Blockwise causal attention. q, k, v: (heads_batch, seq, head_dim).
-
-    A CPU tensor gets `flash_attention_plain`. A CUDA tensor launches the
-    kernel in csrc/flash_fwd.cu on the current stream, or raises; it never
-    falls back. With `return_lse`, returns (o, lse) with lse f32
-    (heads_batch, seq)."""
-    global launches
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
+def _on_kernel_device(q) -> bool:
+    """False for a CPU tensor (plain version), True for CUDA (kernel)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, sm_scale, causal, return_lse)
+        return False
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention has no backward on CUDA yet: the backward kernels "
-            "arrive with the training slice (ROADMAP.md, Queue 1, item 2)")
+    return True
+
+
+def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool,
+                        return_lse: bool = False):
+    """K1: `flash_attention_plain` on a CPU tensor, the kernel in
+    csrc/flash_fwd.cu on a CUDA tensor (current stream), or raises."""
+    if not _on_kernel_device(q):
+        return flash_attention_plain(q, k, v, sm_scale, causal, return_lse)
     _check_kernel_inputs(q, k, v)
     hb, seq, d = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((hb, seq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = _flash_fwd_fn()
+    fn = _kernel_fn("flash_fwd", 5, 5)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr() if lse is not None else None,
@@ -127,5 +176,98 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
                  float(sm_scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches["flash_fwd"] += 1
     return (o, lse) if return_lse else o
+
+
+def launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale: float,
+               causal: bool) -> None:
+    """Launch K2 (into dk, dv) and K3 (into dq) of csrc/flash_bwd.cu on the
+    current stream. A None dq skips K3, None dk and dv skip K2. Inputs are
+    contiguous CUDA tensors; lse and di f32 (heads_batch, seq); outputs of
+    q's shape in q's dtype or f32."""
+    _check_kernel_inputs(q, k, v, do)
+    hb, seq, d = q.shape
+    outs = [t for t in (dq, dk, dv) if t is not None]
+    if (dk is None) != (dv is None) or not outs:
+        raise ValueError("launch_bwd takes dq, or dk and dv, or all three")
+    for t in (lse, di):
+        if (t.shape != (hb, seq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError("lse and di must be contiguous f32 "
+                             f"(heads_batch, seq) on {q.device}")
+    if any(t.shape != q.shape or t.device != q.device or not t.is_contiguous()
+           or t.dtype != outs[0].dtype
+           or t.dtype not in (q.dtype, torch.float32) for t in outs):
+        raise ValueError("dq, dk, dv must be contiguous tensors of q's shape, "
+                         "of q's dtype or f32, of one dtype, on q's device")
+    fn = _kernel_fn("flash_bwd", 9, 6)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), di.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+                 hb, seq, d, _DTYPE_CODE[q.dtype], _DTYPE_CODE[outs[0].dtype],
+                 int(causal), float(sm_scale),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    if dk is not None:
+        launches["flash_bwd_dkv"] += 1
+    if dq is not None:
+        launches["flash_bwd_dq"] += 1
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, causal: bool,
+                        out_dtype=None):
+    """(dq, dk, dv) of attention with upstream gradient `do`, in
+    `out_dtype` (default: q's dtype). `flash_attention_bwd_plain` on a CPU
+    tensor; K2 and K3 on a CUDA tensor, or raises."""
+    if not _on_kernel_device(q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale,
+                                         causal, out_dtype)
+    di = _row_dot(do, o)
+    dq, dk, dv = (torch.empty(q.shape, dtype=out_dtype or q.dtype,
+                              device=q.device) for _ in range(3))
+    launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1 with lse, saving (q, k, v, o, lse); backward K2 and K3.
+    On CPU tensors both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal):
+        o, lse = flash_attention_fwd(q, k, v, sm_scale, causal, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        # dO arrives strided (through the heads unfold's transpose)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.sm_scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, sm_scale: Optional[float] = None,
+                    causal: bool = True, return_lse: bool = False):
+    """Blockwise causal attention. q, k, v: (heads_batch, seq, head_dim).
+
+    Differentiable: when a gradient is needed it goes through
+    `_FlashAttention` (K1 forward, K2 + K3 backward on CUDA; the plain
+    versions on the CPU). With `return_lse`, returns (o, lse) with lse f32
+    (heads_batch, seq), not differentiable."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o, lse = _FlashAttention.apply(q, k, v, sm_scale, causal)
+        return (o, lse) if return_lse else o
+    return flash_attention_fwd(q, k, v, sm_scale, causal, return_lse)

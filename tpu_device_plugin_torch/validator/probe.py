@@ -1,11 +1,13 @@
-"""Slice validation probe on an NVIDIA card: the serving path.
+"""Slice validation probe on an NVIDIA card: training and serving.
 
-Port of `tpu_device_plugin/validator/probe.py`, `--mode infer`: process
-start → CUDA device enumerated → first forward done, then serving latency
-percentiles, tokens/s, and a matmul/memory microbench checked against the
+Port of `tpu_device_plugin/validator/probe.py` for one card: process start
+→ CUDA device enumerated → first step done, then either training
+(`--mode train`, the default: SGD steps, differenced step time, model
+TFLOP/s and MFU, loss must fall) or serving (`--mode infer`: latency
+percentiles, tokens/s), and a matmul/memory microbench checked against the
 card's datasheet peak. Exit code is non-zero when the card is unusable, so
-a VMI startup probe can gate workload admission on it. Training, the mesh
-and the benches are later slices (ROADMAP.md, Queue 1).
+a VMI startup probe can gate workload admission on it. The mesh, GPipe and
+the benches are later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ class SliceReport:
     device_kinds: List[str] = field(default_factory=list)
     mesh_shape: Dict[str, int] = field(default_factory=dict)
     devices_visible_s: float = 0.0   # process start -> device enumerated
-    first_step_s: float = 0.0        # process start -> first forward done
-    step_time_s: float = 0.0         # steady-state forward latency
+    first_step_s: float = 0.0        # process start -> first step done
+    step_time_s: float = 0.0         # steady-state train step / forward time
     tflops_per_chip: float = 0.0     # burn-in matmul throughput (train mode)
     matmul_tflops: float = 0.0       # single-card bf16 matmul microbench
     hbm_gbps: float = 0.0            # single-card memory bandwidth estimate
@@ -50,9 +52,11 @@ class SliceReport:
     infer_p50_ms: float = 0.0
     infer_p99_ms: float = 0.0
     tokens_per_s: float = 0.0
-    # forward passes this validation ran (each launches the attention
-    # kernel once per layer in flash mode)
+    # forward passes (infer) and training steps (train) this validation
+    # ran; in flash mode each forward launches K1 once per layer, each
+    # step K1, K2 and K3 once per layer (K1 twice with remat)
     forwards: int = 0
+    steps: int = 0
     # True when the failure is the CALLER's configuration, not a broken
     # card — probes gating VMI admission must not treat it as hardware
     invalid_config: bool = False
@@ -60,6 +64,23 @@ class SliceReport:
 
     def to_json(self) -> str:
         return json.dumps(self.__dict__, sort_keys=True)
+
+
+def _workload_flops(cfg) -> float:
+    """Model training FLOPs per step (fwd+bwd ~= 3x fwd matmul FLOPs).
+
+    Counts CAUSAL attention (S*d MACs per token, not the dense 2*S*d): the
+    flash kernels skip future tiles outright and the einsum path's masked
+    upper triangle is waste, not work. MFU derived from this is therefore
+    the conservative "model FLOPs" convention (remat's extra forward also
+    uncounted). A copy of the JAX package's formula, so the two report
+    the same TFLOP/s for the same step time."""
+    per_token = (
+        4 * cfg.d_model * cfg.d_model        # qkv+o projections
+        + cfg.d_model * cfg.seq_len          # causal scores + values
+        + 2 * cfg.d_model * cfg.d_ff         # mlp
+    ) * 2 * cfg.n_layers + 2 * cfg.d_model * cfg.vocab * 2
+    return 3.0 * per_token * cfg.batch * cfg.seq_len
 
 
 # Minimum differenced compute time (seconds) for a trustworthy microbench
@@ -114,17 +135,17 @@ def _microbench(device: torch.device, min_diff_s: Optional[float] = None):
 
 
 def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
-                   mode: str = "infer", device=None) -> SliceReport:
-    """Serving-path validation of one card (`device`, CUDA by default)."""
+                   mode: str = "train", device=None) -> SliceReport:
+    """Validation of one card (`device`, CUDA by default): training steps
+    (`mode="train"`) or serving forwards (`mode="infer"`)."""
     report = SliceReport(ok=False)
-    if mode != "infer":
+    if mode not in ("train", "infer"):
         report.invalid_config = True
         report.error = (f"mode {mode!r} is not yet ported (ROADMAP.md, "
-                        "Queue 1); only 'infer' runs")
+                        "Queue 1); 'train' and 'infer' run")
         return report
     try:
-        from .timing import paired_time
-        from .workload import ModelConfig, build_infer, resolve_device
+        from .workload import ModelConfig, resolve_device
         dev = resolve_device(device)
         report.devices_visible_s = time.monotonic() - _PROCESS_START
         if dev.type == "cuda":
@@ -136,42 +157,11 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
             report.n_devices = 1
             report.device_kinds = [dev.type]
         cfg = cfg or ModelConfig()
-        steps = max(steps, 1)  # percentiles need >=1 sample
-        fwd, params, tokens = build_infer(cfg, attention=attention, device=dev)
-
-        def run(tok):
-            report.forwards += 1
-            return fwd(params, tok)
-
-        logits = run(tokens)
-        logits[0, 0, 0].item()   # trusted sync
-        report.first_step_s = time.monotonic() - _PROCESS_START
-        # end-to-end percentiles: submit -> one fetched element
-        lat = []
-        for _ in range(steps):
-            t0 = time.monotonic()
-            run(tokens)[0, 0, 0].item()
-            lat.append(time.monotonic() - t0)
-        lat.sort()
-        report.infer_p50_ms = lat[len(lat) // 2] * 1e3
-        report.infer_p99_ms = lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
-
-        # per-forward time by chained differencing: each iteration's argmax
-        # feeds the next tokens, so the chain cannot overlap or be skipped
-        def infer_chain(k):
-            def chain(tok):
-                for _ in range(k):
-                    tok = run(tok).argmax(dim=-1)
-                return tok.sum()
-            return chain
-
-        fwd_s = paired_time(infer_chain, (tokens,), 3, max(steps // 2, 4))
-        report.step_time_s = fwd_s if fwd_s > 0 else sum(lat) / len(lat)
-        report.tokens_per_s = cfg.batch * cfg.seq_len / report.step_time_s
-        # a serving card is usable iff its logits are finite
-        report.ok = bool(torch.isfinite(logits).all())
-        if not report.ok:
-            report.error = "non-finite logits in serving forward"
+        steps = max(steps, 1)
+        if mode == "infer":
+            _serve(report, cfg, steps, attention, dev)
+        else:
+            _train(report, cfg, steps, attention, dev)
 
         # Microbench + physics check after the verdict. A card slower than
         # peak is diagnostic-only; a card MEASURING FASTER than its
@@ -198,6 +188,12 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                 report.peak_hbm_gbps = peak.hbm_gbps
                 report.microbench_mfu = report.matmul_tflops / peak.bf16_tflops
                 report.hbm_frac = report.hbm_gbps / peak.hbm_gbps
+                if report.tflops_per_chip:
+                    report.mfu = report.tflops_per_chip / peak.bf16_tflops
+                    if report.mfu > peaks.SUSPECT_FACTOR:
+                        suspect = True
+                        why = (f"train MFU {report.mfu:.2f} > "
+                               f"{peaks.SUSPECT_FACTOR:g} is impossible; " + why)
             if suspect:
                 report.perf_suspect = True
                 report.ok = False
@@ -209,6 +205,87 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
     except Exception as exc:  # report, don't crash the probe harness
         report.error = f"{type(exc).__name__}: {exc}"
     return report
+
+
+def _serve(report: SliceReport, cfg, steps: int, attention, dev) -> None:
+    """Serving path: first forward, latency percentiles, differenced
+    per-forward time, tokens/s; ok iff the logits are finite."""
+    from .timing import paired_time
+    from .workload import build_infer
+    fwd, params, tokens = build_infer(cfg, attention=attention, device=dev)
+
+    def run(tok):
+        report.forwards += 1
+        return fwd(params, tok)
+
+    logits = run(tokens)
+    logits[0, 0, 0].item()   # trusted sync
+    report.first_step_s = time.monotonic() - _PROCESS_START
+    # end-to-end percentiles: submit -> one fetched element
+    lat = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        run(tokens)[0, 0, 0].item()
+        lat.append(time.monotonic() - t0)
+    lat.sort()
+    report.infer_p50_ms = lat[len(lat) // 2] * 1e3
+    report.infer_p99_ms = lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+
+    # per-forward time by chained differencing: each iteration's argmax
+    # feeds the next tokens, so the chain cannot overlap or be skipped
+    def infer_chain(k):
+        def chain(tok):
+            for _ in range(k):
+                tok = run(tok).argmax(dim=-1)
+            return tok.sum()
+        return chain
+
+    fwd_s = paired_time(infer_chain, (tokens,), 3, max(steps // 2, 4))
+    report.step_time_s = fwd_s if fwd_s > 0 else sum(lat) / len(lat)
+    report.tokens_per_s = cfg.batch * cfg.seq_len / report.step_time_s
+    # a serving card is usable iff its logits are finite
+    report.ok = bool(torch.isfinite(logits).all())
+    if not report.ok:
+        report.error = "non-finite logits in serving forward"
+
+
+def _train(report: SliceReport, cfg, steps: int, attention, dev) -> None:
+    """Training path: the first step gives `loss_start`; blocks of N and 2N
+    steps, each synced by fetching the loss, give the differenced step time
+    (the fixed per-fetch cost cancels); ok iff the loss fell."""
+    from .workload import build_workload
+    step, params, momentum, tokens = build_workload(cfg, attention=attention,
+                                                    device=dev)
+
+    def run_step():
+        report.steps += 1
+        return step(params, momentum, tokens)[2]
+
+    report.loss_start = run_step().item()
+    report.first_step_s = time.monotonic() - _PROCESS_START
+
+    def run_block(k):
+        t0 = time.monotonic()
+        for _ in range(k):
+            loss = run_step()
+        val = loss.item()
+        return time.monotonic() - t0, val
+
+    t_n, _ = run_block(steps)
+    t_2n, report.loss_end = run_block(2 * steps)
+    # on a noisy host the difference can come out non-positive; then the
+    # 2N block's mean (one fetch included), as the serving path falls back
+    # to its mean latency
+    diff = t_2n - t_n
+    report.step_time_s = diff / steps if diff > 0 else t_2n / (2 * steps)
+    if report.step_time_s > 0:
+        # the step runs on one card
+        report.tflops_per_chip = _workload_flops(cfg) / report.step_time_s / 1e12
+    # a card that cannot learn is broken even if it computes
+    report.ok = report.loss_end < report.loss_start
+    if not report.ok:
+        report.error = (f"loss did not decrease "
+                        f"({report.loss_start:.4f} -> {report.loss_end:.4f})")
 
 
 # Named model-size presets. "mfu" is the sized-up configuration that
@@ -226,7 +303,6 @@ PRESETS = {
 # what the CLI refuses until its slice lands, and the ROADMAP.md item that
 # brings it
 _NOT_PORTED_MODES = {
-    "train": "Queue 1, item 2 (training slice)",
     "attn-bench": "Queue 1, item 7 (benches)",
     "ring-bench": "Queue 1, item 7 (benches)",
 }
@@ -238,18 +314,22 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="gpu-slice-validator",
         description="Validate a passed-through NVIDIA card from inside the "
-                    "guest (serving path).")
+                    "guest.")
     parser.add_argument("--steps", type=int, default=20)
-    parser.add_argument("--mode", choices=["infer", *_NOT_PORTED_MODES],
-                        default="infer",
-                        help="infer = forward-only serving latency "
-                             "percentiles (p50/p99, tokens/s); the other "
-                             "modes are not ported yet")
+    parser.add_argument("--mode", choices=["train", "infer", *_NOT_PORTED_MODES],
+                        default="train",
+                        help="train = SGD steps (step time, TFLOP/s, MFU, "
+                             "loss must fall); infer = forward-only serving "
+                             "latency percentiles (p50/p99, tokens/s); the "
+                             "benches are not ported yet")
     parser.add_argument("--preset", choices=sorted(PRESETS), default=None,
                         help="named model size: burnin = tiny defaults, "
                              "mfu = d_model 2048, seq 2048, 8 layers, "
                              "mfu-lite = d_model 1024, 4 layers")
     parser.add_argument("--seq-len", type=int, default=None)
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each layer in the backward instead "
+                             "of keeping its activations")
     parser.add_argument("--attention", choices=["auto", "flash", "einsum"],
                         default="auto",
                         help="auto = the CUDA flash kernel on the card, "
@@ -267,11 +347,13 @@ def main(argv=None) -> int:
             parser.error(f"--{flag}: the mesh is not yet ported "
                          "(ROADMAP.md, Queue 1, item 3)")
     cfg = None
-    if args.preset is not None or args.seq_len is not None:
+    if args.preset is not None or args.seq_len is not None or args.remat:
         from .workload import ModelConfig
         overrides = dict(PRESETS.get(args.preset or "", {}))
         if args.seq_len is not None:
             overrides["seq_len"] = args.seq_len
+        if args.remat:
+            overrides["remat"] = True
         cfg = ModelConfig(**overrides)
     attention = None if args.attention == "auto" else args.attention
     report = validate_slice(cfg=cfg, steps=args.steps, attention=attention,

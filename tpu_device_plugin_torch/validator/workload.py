@@ -1,17 +1,19 @@
-"""Transformer burn-in workload, serving half, in PyTorch.
+"""Transformer burn-in workload in PyTorch: serving and training.
 
 Port of `tpu_device_plugin/validator/workload.py` for one CUDA device:
-embedding, RMSNorm, multi-head causal attention, GELU MLP, unembedding.
+embedding, RMSNorm, multi-head causal attention, GELU MLP, unembedding,
+cross-entropy, and SGD with momentum.
 
 - Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`,
   stacked on a leading n_layers dim, under `embed`, `unembed` and
   `layers.{wq,wk,wv,wo,w1,w2}`; weights from the JAX package load with
   `params_from_jax`.
 - Every matmul runs in bfloat16 (weights are cast at the matmul, as the
-  JAX forward does); RMSNorm and the logits are float32.
-- Attention is `flash` (the CUDA kernel in csrc/flash_fwd.cu, its plain
-  version on the CPU) or `einsum`. Ring attention, the mesh, MoE and
-  training come in later slices (ROADMAP.md, Queue 1).
+  JAX forward does); RMSNorm and the logits are float32; params, grads
+  and momentum are float32.
+- Attention is `flash` (the CUDA kernels in csrc/, forward and backward;
+  their plain versions on the CPU) or `einsum`. Ring attention, the mesh
+  and MoE come in later slices (ROADMAP.md, Queue 1).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
@@ -19,11 +21,12 @@ Entry points run on CUDA unless the caller passes `device="cpu"`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -44,6 +47,8 @@ class ModelConfig:
     # refuses it)
     n_experts: int = 0
     capacity_factor: float = 1.25
+    # recompute each layer's activations in the backward instead of
+    # keeping them (torch.utils.checkpoint; the JAX version's jax.checkpoint)
     remat: bool = False
 
 
@@ -160,20 +165,81 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attention: str = "einsum") -> torch.Tensor:
     """Logits (batch, seq, vocab) in f32."""
     x = _bf16(params["embed"])[tokens]
-    for i in range(cfg.n_layers):
-        layer = {name: w[i] for name, w in params["layers"].items()}
-        x = _layer_body(x, layer, cfg, attention)
+    # unbind, not w[i]: its backward stacks the layers' grads once, where
+    # each w[i]'s would fill and add a zero grad of the whole stack
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][name].unbind(0) for name in names))
+    for weights in per_layer:
+        layer = dict(zip(names, weights))
+        if cfg.remat:
+            x = checkpoint(_layer_body, x, layer, cfg, attention,
+                           use_reentrant=False)
+        else:
+            x = _layer_body(x, layer, cfg, attention)
     logits = _rms_norm(x) @ _bf16(params["unembed"])
     return logits.float()
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attention: str = "einsum") -> torch.Tensor:
-    """Mean next-token cross-entropy (forward only in this slice)."""
+    """Mean next-token cross-entropy."""
     logits = forward(params, tokens, cfg, attention)
     logprobs = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logprobs, -1, tokens[:, 1:, None].long())
     return nll.mean()
+
+
+def _named_leaves(tree: Params, prefix: str = ""
+                  ) -> List[Tuple[str, torch.Tensor]]:
+    """(dotted key, tensor) of each tensor of a param tree, in sorted-key
+    order."""
+    if isinstance(tree, dict):
+        return [kv for key in sorted(tree)
+                for kv in _named_leaves(tree[key], f"{prefix}{key}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _leaves(tree: Params) -> List[torch.Tensor]:
+    """The tensors of a param tree, in sorted-key order."""
+    return [t for _, t in _named_leaves(tree)]
+
+
+def _with_leaves(tree: Params, leaves) -> Params:
+    """A tree of `tree`'s structure holding `leaves` (in `_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        return next(it)
+    return build(tree)
+
+
+def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   attention: str = "einsum") -> Tuple[torch.Tensor, Params]:
+    """(loss, grads) with grads a tree of params' structure; the caller's
+    params are not marked as requiring grad."""
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(_with_leaves(params, leaves), tokens, cfg, attention)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), _with_leaves(params, grads)
+
+
+def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
+             cfg: ModelConfig, attention: str = "einsum"
+             ) -> Tuple[Params, Params, torch.Tensor]:
+    """One training step: loss, grads, SGD with momentum.
+
+    m <- momentum * m + g, p <- p - lr * m. params and momentum are updated
+    in place (the JAX version donates them) and returned with the loss,
+    which is the loss before the update."""
+    loss, grads = value_and_grad(params, tokens, cfg, attention)
+    with torch.no_grad():
+        for p, m, g in zip(_leaves(params), _leaves(momentum), _leaves(grads)):
+            m.mul_(cfg.momentum).add_(g)
+            p.sub_(m, alpha=cfg.lr)
+    return params, momentum, loss
 
 
 def _resolve(cfg: Optional[ModelConfig], attention: Optional[str], device):
@@ -190,6 +256,35 @@ def _resolve(cfg: Optional[ModelConfig], attention: Optional[str], device):
     return cfg, dev, attention
 
 
+def _place(cfg: ModelConfig, dev: torch.device, seed: int):
+    """Params from a generator seeded with `seed`, a token batch from one
+    seeded with `seed + 1`, both on `dev`."""
+    params = init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len),
+                           generator=torch.Generator(dev).manual_seed(seed + 1),
+                           device=dev)
+    return params, tokens
+
+
+def build_workload(cfg: Optional[ModelConfig] = None, seed: int = 0,
+                   attention: Optional[str] = None, device=None):
+    """Training build on one device.
+
+    Returns (step, params, momentum, tokens): `step(params, momentum,
+    tokens) -> (params, momentum, loss)` is `sgd_step`, which updates its
+    arguments in place; params and tokens are seeded as in `build_infer`;
+    momentum starts at zero."""
+    cfg, dev, attention = _resolve(cfg, attention, device)
+    params, tokens = _place(cfg, dev, seed)
+    momentum = _with_leaves(params, [torch.zeros_like(p)
+                                     for p in _leaves(params)])
+
+    def step(p: Params, m: Params, t: torch.Tensor):
+        return sgd_step(p, m, t, cfg, attention)
+
+    return step, params, momentum, tokens
+
+
 def build_infer(cfg: Optional[ModelConfig] = None, seed: int = 0,
                 attention: Optional[str] = None, device=None):
     """Serving-path build on one device.
@@ -198,10 +293,7 @@ def build_infer(cfg: Optional[ModelConfig] = None, seed: int = 0,
     seeded with `seed`, a token batch from one seeded with `seed + 1`. The
     forward runs without autograd and can be called repeatedly."""
     cfg, dev, attention = _resolve(cfg, attention, device)
-    params = init_params(torch.Generator(dev).manual_seed(seed), cfg, dev)
-    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len),
-                           generator=torch.Generator(dev).manual_seed(seed + 1),
-                           device=dev)
+    params, tokens = _place(cfg, dev, seed)
 
     @torch.no_grad()
     def fwd(p: Params, t: torch.Tensor) -> torch.Tensor:
