@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Shows that chip_smoke.py's kernel checks fail a kernel that is wrong.
+
+    python3 scripts/mutation_check.py [--out DIR]
+
+Run from the repository root on a machine with a CUDA card. For each
+mutation below it copies tpu_device_plugin_torch/ into a fresh directory
+(under --out, default a temporary one), changes one line of one kernel
+source there, and runs chip_smoke's phase-3 check of that kernel against
+the copy (which builds its own libraries). A mutation is caught when the
+check raises; the script prints, per mutation, the check line that failed
+(tol_ratio, max_rel_err), and exits non-zero if any mutation passed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = "tpu_device_plugin_torch/validator/csrc"
+
+# (name, source, line as it is, line as mutated, chip_smoke check)
+MUTATIONS = [
+    ("K1 skips the diagonal key tile (query tiles after the first)",
+     f"{CSRC}/flash_fwd.cu",
+     "  const int num_k = (k_end + TC_BK - 1) / TC_BK;",
+     "  const int num_k = (k_end + TC_BK - 1) / TC_BK - (causal && q0 > 0);",
+     "check_flash_fwd"),
+    ("K2 skips the diagonal query tile of the last key tile",
+     f"{CSRC}/flash_bwd.cu",
+     "  const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal",
+     "  const int q_begin = causal ? k0 / TC_BQ + (blockIdx.x == gridDim.x - 1) : 0;",
+     "check_flash_bwd"),
+]
+
+CHILD = """
+import json, sys, torch
+sys.path.append({root!r})
+import chip_smoke
+from tpu_device_plugin_torch.validator import flash_attention as fa
+assert fa.__file__.startswith({copy!r}), fa.__file__
+try:
+    chip_smoke.{check}(torch, fa, torch.device("cuda", 0))
+except AssertionError:
+    sys.exit(3)
+"""
+
+
+def run(name, source, before, after, check, out_dir: Path) -> dict:
+    copy = Path(tempfile.mkdtemp(prefix="mutant-", dir=out_dir))
+    shutil.copytree(ROOT / "tpu_device_plugin_torch",
+                    copy / "tpu_device_plugin_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    path = copy / source
+    text = path.read_text()
+    if text.count(before) != 1:
+        raise SystemExit(f"{source}: the line to mutate is not there once: "
+                         f"{before!r}")
+    path.write_text(text.replace(before, after))
+    env = dict(os.environ, PYTHONPATH=str(copy))
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD.format(root=str(ROOT), copy=str(copy),
+                                            check=check)],
+        cwd=copy, env=env, capture_output=True, text=True, timeout=900)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    failed = [ln for ln in lines if ln.get("ok") is False]
+    shutil.rmtree(copy, ignore_errors=True)
+    return {"mutation": name, "source": source, "caught": proc.returncode == 3,
+            "exit": proc.returncode, "failed_check": failed[0] if failed else None,
+            "stderr_tail": proc.stderr[-2000:] if proc.returncode not in (0, 3)
+            else ""}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory for the mutated copies")
+    args = ap.parse_args()
+    out_dir = args.out or Path(tempfile.mkdtemp(prefix="mutation-check-"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    results = [run(*m, out_dir) for m in MUTATIONS]
+    for r in results:
+        print(json.dumps(r), flush=True)
+    return 0 if all(r["caught"] for r in results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,9 +32,11 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-GROUPS = (("flash_fwd", "flash_fwd_kernel"),
-          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
-          ("flash_bwd_dq", "flash_bwd_dq_kernel"))
+# kernel-name marks: each kernel's scalar (f32) and tensor-core (bf16)
+# instances share them
+GROUPS = (("flash_fwd", "flash_fwd_"),
+          ("flash_bwd_dkv", "flash_bwd_dkv_"),
+          ("flash_bwd_dq", "flash_bwd_dq_"))
 GEMM_MARKS = ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet")
 
 

@@ -141,3 +141,51 @@ def test_kernel_library_name_follows_source_and_flags(monkeypatch):
     assert len(digest) == 16 and digest == _kernels._digest(src)
     monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
     assert _kernels._digest(src) != digest
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block", [(128, 128), (96, 64), (200, 128)])
+def test_rounding_plain_forward_matches_jax_kernel(d, causal, seq, block):
+    """In bf16 the plain version rounds P to bf16 before P V, as the JAX
+    kernel does (flash_attention.py:111), so it agrees with the kernel to
+    within its output rounding: < 1e-2 (the bar above is 3e-2)."""
+    arrays = inputs(2, seq, d, seed=11 + seq + d)
+    out = tfa.flash_attention(*to_torch(arrays, "bfloat16"), None, causal)
+    kernel = jfa.flash_attention(*to_jax(arrays, jnp.bfloat16), None, causal,
+                                 block, block, True)
+    assert np.max(np.abs(as_np(out) - as_np(kernel))) < 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_in_f32_is_unrounded(causal):
+    """f32 inputs take exp(s - lse) V as before, bit for bit; bf16 inputs
+    go through the rounding recurrence, which in f32 arithmetic differs
+    from it only by rounding."""
+    q, k, v = to_torch(inputs(2, 200, 32, seed=4), "float32")
+    scale = 32 ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    if causal:
+        s = torch.where(torch.ones(200, 200, dtype=torch.bool).tril(), s,
+                        tfa.NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    old = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]), v)
+    o, plain_lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
+    assert torch.equal(o, old) and torch.equal(plain_lse, lse)
+    assert torch.allclose(tfa._rounded_pv(s, v), old, atol=1e-6)
+
+
+def test_rounding_terms_bound_every_term():
+    """`rounding_terms_fwd` is no smaller than any single term P[r, i]
+    |v[i, c]| of o[r, c]'s sum."""
+    q, k, v = to_torch(inputs(2, 96, 16, seed=6), "bfloat16")
+    scale = 0.25
+    _, lse = tfa.flash_attention_plain(q, k, v, scale, True, True)
+    term = tfa.rounding_terms_fwd(q, k, v, lse, scale, True)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.where(torch.ones(96, 96, dtype=torch.bool).tril(), s,
+                    tfa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    terms = (p[..., None] * v.float().abs()[:, None]).amax(dim=2)
+    assert term.shape == q.shape
+    assert bool((terms <= term * (1 + 1e-6)).all())

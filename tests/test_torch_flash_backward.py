@@ -148,3 +148,65 @@ def test_launch_bwd_output_checks():
         tfa.launch_bwd(q, q, q, q, rows, rows, bf16, None, None, 1.0, True)
     with pytest.raises(ValueError, match="dk and dv"):
         tfa.launch_bwd(q, q, q, q, rows, rows, None, q, None, 1.0, True)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block", [(96, 64), (128, 32), (200, 128)])
+def test_rounding_plain_dkv_matches_jax_kernels(d, causal, seq, block):
+    """In bf16 the plain K2 rounds P and dS to bf16 before dV = P^T dO and
+    dK = dS^T Q, as the JAX kernel does (:224, :227): dk and dv agree with
+    `_flash_bwd_3d` to < 1e-2 (the bar above is 1e-1)."""
+    q, k, v, do = (to_torch(a, "bfloat16") for a in arrays(2, seq, d, 5 + seq + d))
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
+    _, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale,
+                                              causal)
+    jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
+                            (*lse.shape, jfa.LANES))
+    _, rdk, rdv = jfa._flash_bwd_3d(
+        *(to_jax(as_np(t), jnp.bfloat16) for t in (q, k, v, o)), jlse,
+        to_jax(as_np(do), jnp.bfloat16), scale, causal, block, block, True)
+    for g, r in ((dk, rdk), (dv, rdv)):
+        assert np.max(np.abs(as_np(g) - as_np(r))) < 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_in_f32_is_unrounded(causal):
+    """In f32 the rounding is the identity: K2's plain version equals the
+    products of the unrounded P and dS bit for bit, and K3's never rounds."""
+    q, k, v, do = (to_torch(a, "float32") for a in arrays(2, 96, 32, 8))
+    scale = 32 ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
+    di = tfa._row_dot(do, o)
+    p, ds = tfa._p_ds(q, k, v, do, lse, di, scale, causal)
+    dk, dv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, di, scale, causal)
+    assert torch.equal(dv, torch.einsum("bqk,bqd->bkd", p, do))
+    assert torch.equal(dk, torch.einsum("bqk,bqd->bkd", ds, q))
+    # bf16: P and dS rounded for K2, dS unrounded for K3
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    pb, dsb = tfa._p_ds(qb, kb, vb, dob, lse, di, scale, causal)
+    rp, rds = tfa._p_ds(qb, kb, vb, dob, lse, di, scale, causal,
+                        round_to=torch.bfloat16)
+    assert torch.equal(rp, pb.bfloat16().float())
+    assert torch.equal(rds, dsb.bfloat16().float())
+    assert torch.equal(tfa.flash_bwd_dq_plain(qb, kb, vb, dob, lse, di, scale,
+                                              causal),
+                       torch.einsum("bqk,bkd->bqd", dsb, kb.float()))
+
+
+def test_rounding_terms_dkv_bound_every_term():
+    """`rounding_terms_dkv` is no smaller than any single term of dk's
+    (dS[q, k] Q[q, c]) or dv's (P[q, k] dO[q, c]) sums."""
+    q, k, v, do = (to_torch(a, "bfloat16") for a in arrays(2, 64, 16, 12))
+    scale = 0.25
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, True, True)
+    di = tfa._row_dot(do, o)
+    term_dk, term_dv = tfa.rounding_terms_dkv(q, k, v, do, lse, di, scale,
+                                              True)
+    p, ds = tfa._p_ds(q, k, v, do, lse, di, scale, True,
+                      round_to=torch.bfloat16)
+    dk_terms = (ds.abs()[..., None] * q.float().abs()[:, :, None]).amax(dim=1)
+    dv_terms = (p[..., None] * do.float().abs()[:, :, None]).amax(dim=1)
+    assert term_dk.shape == term_dv.shape == q.shape
+    assert bool((dk_terms <= term_dk).all()) and bool((dv_terms <= term_dv).all())

@@ -28,6 +28,8 @@ SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
 ENTRY = dict(seq_len=128, batch=4, n_layers=2)
 LOGIT_REL_TOL = 0.02
 ARGMAX_AGREE_MIN = {"small": 0.99, "entry": 0.98}
+# vocab 256 (entry) has many near-tied logits: its agreement is pooled
+AGREE_SEEDS = {"small": (0,), "entry": (0, 1, 2)}
 
 
 def port_inputs(params, tokens):
@@ -38,18 +40,25 @@ def port_inputs(params, tokens):
 @pytest.mark.parametrize("attention", ["flash", "einsum"])
 @pytest.mark.parametrize("name", ["small", "entry"])
 def test_forward_matches_jax_build_infer(name, attention):
+    """Logits within LOGIT_REL_TOL for each seed; argmax agreement over
+    the positions of all AGREE_SEEDS. At vocab 256 near-tied logits flip
+    under bf16 rounding alone, so one batch of 512 positions estimates the
+    agreement only to about +-0.6 points: over seeds 0-5 the entry config's
+    flash forward agrees on 97.7-99.8% (mean 98.8%) of positions."""
     cfg_kw = {"small": SMALL, "entry": ENTRY}[name]
-    fwd, params, tokens = jw.build_infer(jw.ModelConfig(**cfg_kw),
-                                         attention=attention)
-    ref = np.asarray(fwd(params, tokens))
-    tparams, ttokens = port_inputs(params, tokens)
-    cfg = tw.ModelConfig(**cfg_kw)
-    with torch.no_grad():
-        out = tw.forward(tparams, ttokens, cfg, attention).numpy()
-    assert out.shape == ref.shape == (cfg.batch, cfg.seq_len, cfg.vocab)
-    assert np.max(np.abs(out - ref)) <= LOGIT_REL_TOL * np.max(np.abs(ref))
-    agree = np.mean(out.argmax(-1) == ref.argmax(-1))
-    assert agree >= ARGMAX_AGREE_MIN[name]
+    agree = []
+    for seed in AGREE_SEEDS[name]:
+        fwd, params, tokens = jw.build_infer(jw.ModelConfig(**cfg_kw),
+                                             seed=seed, attention=attention)
+        ref = np.asarray(fwd(params, tokens))
+        tparams, ttokens = port_inputs(params, tokens)
+        cfg = tw.ModelConfig(**cfg_kw)
+        with torch.no_grad():
+            out = tw.forward(tparams, ttokens, cfg, attention).numpy()
+        assert out.shape == ref.shape == (cfg.batch, cfg.seq_len, cfg.vocab)
+        assert np.max(np.abs(out - ref)) <= LOGIT_REL_TOL * np.max(np.abs(ref))
+        agree.append(np.mean(out.argmax(-1) == ref.argmax(-1)))
+    assert np.mean(agree) >= ARGMAX_AGREE_MIN[name]
 
 
 @pytest.mark.parametrize("attention", ["flash", "einsum"])

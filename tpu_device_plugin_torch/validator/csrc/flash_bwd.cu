@@ -3,10 +3,9 @@
 // Replaces the two Pallas TPU backward kernels of
 // tpu_device_plugin/validator/flash_attention.py, launched by
 // `_flash_bwd_3d` (:273):
-// - `_flash_bwd_dkv_kernel` (:196) -> flash_bwd_dkv_kernel (K2): per key
-//   tile, over the query tiles at or below the diagonal,
-//   P = exp(Q K^T * scale - lse), dV += P^T dO, dP = dO V^T,
-//   dS = P * (dP - D) * scale, dK += dS^T Q;
+// - `_flash_bwd_dkv_kernel` (:196) -> K2: per key tile, over the query
+//   tiles at or below the diagonal, P = exp(Q K^T * scale - lse),
+//   dV += P^T dO, dP = dO V^T, dS = P * (dP - D) * scale, dK += dS^T Q;
 // - `_flash_bwd_dq_kernel` (:236) -> flash_bwd_dq_kernel (K3): per query
 //   tile, over the key tiles up to the diagonal, the same dS, dQ += dS K.
 // D = rowsum(dO * O) is computed by the caller, in f32, from the saved
@@ -16,32 +15,56 @@
 // What bounds it on this card: at the training shape (hb 128, seq 2048,
 // d 128, bf16, causal) K2 does 8 d FLOPs per causal pair (~275 GFLOP)
 // against ~0.40 GB of traffic, K3 6 d (~206 GFLOP) against ~0.34 GB: both
-// are bound by operations, which only the tensor cores reach. This first
-// version is simple and exact, like flash_fwd.cu: f32 tiles in shared
-// memory, scalar f32 FMAs, 4 x 4 register tiles per thread. Tensor cores,
-// bf16 tiles and pipelining come later.
+// are bound by operations, which only the tensor cores reach.
 //
-// Design against the TPU version:
+// K2 for bf16 inputs (flash_bwd_dkv_wgmma_kernel; bf16 or f32 outputs):
+// tensor cores, in the transposed orientation, so that P and dS are born
+// in the layout their products need and nothing is staged through shared
+// memory.
+// - One block per (128-row key tile, hb), heavy tiles first: two consumer
+//   warpgroups of 64 key rows each, with K and V resident in shared memory,
+//   and one producer warp that streams 64-row Q and dO tiles by TMA, and
+//   the tiles' lse and D rows by its lanes, through a two-stage mbarrier
+//   ring, starting at the diagonal when causal. setmaxnreg gives the
+//   consumers 240 registers: dK and dV stay in f32 registers (64 + 64 per
+//   thread at d 128).
+// - S^T = K Q^T and dP^T = V dO^T are wgmma SS products; P^T = exp(S^T
+//   scale - lse[col]) and dS^T = P^T (dP^T - D[col]) scale run on the
+//   accumulator fragments; each is rounded to bf16 in registers, as the
+//   JAX kernel rounds them (:224, :227), and is the A operand of the RS
+//   products dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major.
+//   `flash_bwd_dkv_plain` rounds the same P and dS.
+// - No atomics: the result is deterministic.
+//
+// K3 (all dtypes) and K2 for f32 inputs: the first, scalar design, exact:
+// f32 tiles in shared memory, scalar f32 FMAs, 4 x 4 register tiles per
+// thread; K3 keeps dS in f32 (its redesign is the next step). On the
+// tensor cores f32 would mean TF32, which the f32 bar refuses.
+//
+// Shared by both, against the TPU version:
 // - The TPU grids carry the f32 accumulators across a sequential third
 //   axis in VMEM scratch. Here one block owns one (key tile, hb) pair for
 //   K2 and one (query tile, hb) pair for K3, loops over the other tiles
 //   itself, and keeps its accumulators in registers. The two-pass shape
 //   is kept: no atomics on dQ, so the result is deterministic.
 // - Pallas pads ragged tails with garbage and the TPU kernel masks P and
-//   dS explicitly. Here every load is masked at `seq` (padded rows load as
-//   zero, padded lse and D as zero) and P and dS are set to 0 outside the
-//   valid (row < seq, col < seq, causal) region, never left to
+//   dS explicitly. Here padded rows load as zero (TMA fills them; padded
+//   lse and D are zero) and P and dS are set to 0 outside the valid
+//   (row < seq, col < seq, causal) region, never left to
 //   exp(-1e30 - lse); stores are masked at `seq`.
-// - The TPU kernel rounds P and dS to the input dtype before the dV, dK
-//   and dQ products; here they stay f32.
 // - Outputs are written in the input dtype or in f32 (`out_dtype`, a
 //   template parameter, so the stores do not branch), so the ring path's
 //   f32 partials from bf16 inputs need no other kernel (:277-280).
-// - At d = 128 K2's tiles take 170 KB and K3's 153 KB of shared memory:
-//   dynamic shared memory, raised with cudaFuncSetAttribute.
+// - At d = 128 the scalar K2's tiles take 170 KB and K3's 153 KB of shared
+//   memory, the tensor-core K2's 130 KB (bf16): dynamic shared memory,
+//   raised with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -346,6 +369,237 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- K2 for bf16 inputs: the tensor-core kernel -------------------------
+
+constexpr int TC_BK = 128;              // key rows per block: 64 per consumer warpgroup
+constexpr int TC_BQ = 64;               // query rows per streamed tile
+constexpr int TC_STAGES = 2;            // Q / dO / lse / D ring depth
+constexpr int TC_THREADS = 384;         // consumer warpgroups 0 and 1, producer 2
+constexpr int TC_CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D> struct DkvSmem {
+  using KT = sm90::Tile<TC_BK, D>;       // K and V, resident
+  using QT = sm90::Tile<TC_BQ, D>;       // Q and dO, streamed
+  static constexpr int V_OFF = KT::BYTES;
+  static constexpr int Q_OFF = 2 * KT::BYTES;
+  static constexpr int DO_OFF = Q_OFF + TC_STAGES * QT::BYTES;
+  static constexpr int LSE_OFF = DO_OFF + TC_STAGES * QT::BYTES;
+  static constexpr int DI_OFF = LSE_OFF + TC_STAGES * TC_BQ * 4;
+  static constexpr int BAR_OFF = DI_OFF + TC_STAGES * TC_BQ * 4;
+  // kv_full, full[TC_STAGES], empty[TC_STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * TC_STAGES) + sm90::SMEM_ALIGN;
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = sm90::pack_bf16(a, b);
+}
+
+template <typename O, int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di, O* __restrict__ dk,
+                           O* __restrict__ dv, int seq, int causal,
+                           float scale) {
+  using L = DkvSmem<D>;
+  using KT = typename L::KT;
+  using QT = typename L::QT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::aligned_smem(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + TC_STAGES;
+
+  const int k0 = blockIdx.x * TC_BK;   // causal: tile 0 has the most work
+  const int hb = blockIdx.y;
+  const int num_q = (seq + TC_BQ - 1) / TC_BQ;
+  const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);     // the producer warp's lanes
+      sm90::mbar_init(&empty[s], TC_CONSUMER_WARPS);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warp: TMA for the tiles, its lanes copy the lse and D rows
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x % 32;
+      const size_t rows = (size_t)hb * seq;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * KT::BYTES);
+        for (int b = 0; b < KT::BOXES; ++b) {
+          sm90::tma_load_3d(smem + b * KT::BOX_BYTES, &mk, kv_full, b * KT::W, k0, hb);
+          sm90::tma_load_3d(smem + L::V_OFF + b * KT::BOX_BYTES, &mv, kv_full,
+                            b * KT::W, k0, hb);
+        }
+      }
+      for (int qt = q_begin; qt < num_q; ++qt) {
+        const int i = qt - q_begin, s = i % TC_STAGES, q0 = qt * TC_BQ;
+        sm90::mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
+        float* slse = reinterpret_cast<float*>(smem + L::LSE_OFF) + s * TC_BQ;
+        float* sdi = reinterpret_cast<float*>(smem + L::DI_OFF) + s * TC_BQ;
+        for (int r = lane; r < TC_BQ; r += 32) {
+          const bool in = q0 + r < seq;
+          slse[r] = in ? lse[rows + q0 + r] * LOG2E : 0.f;   // log2 units
+          sdi[r] = in ? di[rows + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * QT::BYTES);
+          uint8_t* sq = smem + L::Q_OFF + s * QT::BYTES;
+          uint8_t* sdo = smem + L::DO_OFF + s * QT::BYTES;
+          for (int b = 0; b < QT::BOXES; ++b) {
+            sm90::tma_load_3d(sq + b * QT::BOX_BYTES, &mq, &full[s], b * QT::W, q0, hb);
+            sm90::tma_load_3d(sdo + b * QT::BOX_BYTES, &mdo, &full[s], b * QT::W, q0, hb);
+          }
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // consumers, transposed: warpgroup wg owns key rows
+    // [k0 + 64 wg, k0 + 64 wg + 64), this thread rows kr and kr + 8; the
+    // accumulator columns are the tile's 64 query rows
+    sm90::regs_alloc<240>();
+    const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+    const int kr = k0 + 64 * wg + 16 * w + l / 4;
+    const float scale_log2 = scale * LOG2E;
+    const uint64_t k_desc = KT::kmajor(smem);
+    const uint64_t v_desc = KT::kmajor(smem + L::V_OFF);
+    float adk[D / 2], adv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+
+    sm90::mbar_wait(kv_full, 0);
+    for (int qt = q_begin; qt < num_q; ++qt) {
+      const int i = qt - q_begin, s = i % TC_STAGES, q0 = qt * TC_BQ;
+      const uint8_t* sq = smem + L::Q_OFF + s * QT::BYTES;
+      const uint8_t* sdo = smem + L::DO_OFF + s * QT::BYTES;
+      const float* slse = reinterpret_cast<const float*>(smem + L::LSE_OFF) + s * TC_BQ;
+      const float* sdi = reinterpret_cast<const float*>(smem + L::DI_OFF) + s * TC_BQ;
+      sm90::mbar_wait(&full[s], (i / TC_STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, both SS, one group
+      const uint64_t kd = sm90::opaque(k_desc), vd = sm90::opaque(v_desc);
+      const uint64_t qd = sm90::opaque(QT::kmajor(sq));
+      const uint64_t dod = sm90::opaque(QT::kmajor(sdo));
+      float st[TC_BQ / 2], dpt[TC_BQ / 2];
+#pragma unroll
+      for (int j = 0; j < TC_BQ / 2; ++j) st[j] = dpt[j] = 0.f;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<TC_BQ>::ss(st, KT::kmajor_at(kd, 64 * wg, kk),
+                               QT::kmajor_at(qd, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<TC_BQ>::ss(dpt, KT::kmajor_at(vd, 64 * wg, kk),
+                               QT::kmajor_at(dod, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // P^T = exp(S^T scale - lse[col]) and dS^T = P^T (dP^T - D[col])
+      // scale, dS from the f32 P as in the JAX kernel; both 0 outside the
+      // valid region, which only tiles on the diagonal or at `seq` need.
+      // Each pair goes to a bf16 A fragment as soon as it is made, so the
+      // f32 tiles die element by element.
+      const bool edge = (causal && q0 < k0 + TC_BK) || q0 + TC_BQ > seq ||
+                        k0 + TC_BK > seq;
+      uint32_t pa[TC_BQ / 16][4], da[TC_BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float p2[2], ds2[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int i = 8 * kk + 2 * c + x;   // accumulator index 4j + e
+            const int e = i % 4;
+            const int qc = 8 * (i / 4) + 2 * (l % 4) + (e & 1);
+            const int key = kr + 8 * (e >> 1), row = q0 + qc;
+            const bool ok = !edge || (row < seq && key < seq && (!causal || key <= row));
+            p2[x] = ok ? exp2f(st[i] * scale_log2 - slse[qc]) : 0.f;
+            ds2[x] = ok ? p2[x] * (dpt[i] - sdi[qc]) * scale : 0.f;
+          }
+          pa[kk][c] = sm90::pack_bf16(p2[0], p2[1]);
+          da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major)
+      const uint64_t dom = sm90::opaque(QT::mnmajor(sdo));
+      const uint64_t qm = sm90::opaque(QT::mnmajor(sq));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk)
+        sm90::Wgmma<D>::rs(adv, pa[kk], QT::mnmajor_at(dom, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < TC_BQ / 16; ++kk)
+        sm90::Wgmma<D>::rs(adk, da[kk], QT::mnmajor_at(qm, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(adv);
+      sm90::fence_regs(adk);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(da);
+      if (l == 0) sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = kr + 8 * h;
+      if (row >= seq) continue;
+      const size_t base = ((size_t)hb * seq + row) * D + 2 * (l % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        store2(dk + base + 8 * j, adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
+        store2(dv + base + 8 * j, adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <typename O, int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* di, void* dk, void* dv, int hb,
+                             int seq, int causal, float scale,
+                             cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = sm90::tile_map<TC_BQ, D>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mv, v, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BQ, D>(&mdo, dout, hb, seq);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(dk) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(dv) % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  const int bytes = DkvSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<O, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + TC_BK - 1) / TC_BK, hb);
+  flash_bwd_dkv_wgmma_kernel<O, D><<<grid, TC_THREADS, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, di, static_cast<O*>(dk), static_cast<O*>(dv), seq,
+      causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, typename O, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* di,
@@ -358,15 +612,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* tdo = static_cast<const T*>(dout);
   cudaError_t err;
   if (dk != nullptr) {
-    const size_t bytes = Smem<D>::DKV_BYTES;
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, O, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, O, D><<<grid, NT, bytes, stream>>>(
-        tq, tk, tv, tdo, lse, di, static_cast<O*>(dk), static_cast<O*>(dv),
-        seq, causal, scale);
-    err = cudaGetLastError();
+    // K2: the tensor-core kernel for bf16 inputs, the scalar one for f32
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      err = launch_dkv_wgmma<O, D>(q, k, v, dout, lse, di, dk, dv, hb, seq,
+                                   causal, scale, stream);
+    } else {
+      const size_t bytes = Smem<D>::DKV_BYTES;
+      err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, O, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_kernel<T, O, D><<<grid, NT, bytes, stream>>>(
+          tq, tk, tv, tdo, lse, di, static_cast<O*>(dk), static_cast<O*>(dv),
+          seq, causal, scale);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return err;
   }
   if (dq != nullptr) {

@@ -10,12 +10,38 @@
 // What bounds it on this card: at the serving shape (hb 128, seq 2048,
 // d 128, bf16, causal) the work is ~0.14 TFLOP against ~0.27 GB of
 // traffic, ~500 FLOP/byte, far above the H100's ~295 FLOP/byte ridge: it
-// is bound by operations, and only the tensor cores (wgmma) reach the
-// bound. This first version is deliberately simple and exact: f32 tiles in
-// shared memory and scalar f32 FMAs with a 4x4 register tile per thread.
-// It is far from the bound; tensor cores, TMA and pipelining come later.
+// is bound by operations, which only the tensor cores (wgmma) reach.
 //
-// Design against the TPU version:
+// Two designs, chosen by dtype at compile time:
+//
+// bf16 (flash_fwd_wgmma_kernel, every head dim 16-128): tensor cores.
+// - One block per (128-row query tile, hb), heavy causal tiles first: two
+//   consumer warpgroups of 64 query rows each and one producer warpgroup
+//   whose single thread keeps TMA loads of 128-key K and V tiles in flight
+//   through a two-stage ring of mbarriers (full: bytes landed; empty: all
+//   8 consumer warps are done with the stage). setmaxnreg moves registers
+//   from the producer (24) to the consumers (240).
+// - S = Q K^T is a wgmma SS product (Q resident in shared memory, both
+//   K-major); the online softmax runs on the accumulator fragment, each
+//   row's max and sum reduced over its quad with two shuffles; exp2 with
+//   the scale folded into log2 units.
+// - P is rounded to bf16 in registers and is the A operand of O += P V, a
+//   wgmma RS product with V read MN-major: P never touches shared memory.
+//   The rounding is the JAX kernel's (p.astype(v.dtype), :111), and the
+//   plain version (`flash_attention_plain`) rounds the same P, key tile by
+//   key tile of 128.
+// - Key tiles above the diagonal are skipped; only the last tile of a
+//   block (the diagonal one, or the one holding `seq`) is masked. TMA
+//   fills rows past `seq` with zeros; stores are masked at `seq`.
+// - Tiles are bf16 in shared memory, swizzled by TMA (sm90.cuh): 160 KB
+//   at d 128, one block per SM.
+//
+// f32 (flash_fwd_kernel, the first, scalar design; exact): f32 tiles in
+// shared memory and scalar f32 FMAs with a 4x4 register tile per thread.
+// On the tensor cores f32 would mean TF32, which the f32 bar refuses. The
+// main path never runs it.
+//
+// Shared by both, against the TPU version:
 // - The TPU grid walks key blocks as a sequential third axis and carries
 //   m, l and the accumulator in VMEM scratch between steps. Hopper blocks
 //   run in parallel with no carried state, so one block owns one
@@ -23,19 +49,20 @@
 //   keeping m, l and the accumulator in registers.
 // - The TPU kernel's 128-lane replicated lse is a VMEM layout artifact;
 //   here lse is one f32 per row.
-// - Pallas pads ragged tails with garbage; here every load and store is
-//   masked at `seq` (padded K/V/Q rows load as zero, padded key columns get
-//   NEG_INF, padded query rows are never stored).
+// - Pallas pads ragged tails with garbage; here padded K/V/Q rows load as
+//   zero, padded key columns get NEG_INF, padded query rows are never
+//   stored.
 // - NEG_INF stays finite (-1e30): a row that has seen only masked columns
 //   must get exp(m_prev - m_new) == 1, not NaN. Key tiles run in order from
 //   0 and tile 0 always holds column 0, which every row may attend to, so
 //   no row's normalizer picks up masked columns.
-// - Heavy causal query tiles (near the diagonal's end) launch first.
-// - At d = 128 the tiles take ~118 KB of shared memory, past the 48 KB
-//   static limit: dynamic shared memory, raised with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -46,14 +73,10 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+
+// --- f32: the scalar kernel ---------------------------------------------
 
 // Row strides in floats. D + 4 keeps rows 16-byte aligned for float4 reads
 // and puts the 8 rows a quarter-warp reads in 8 distinct bank groups.
@@ -233,15 +256,231 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// --- bf16: the tensor-core kernel ---------------------------------------
+
+constexpr int TC_BQ = 128;              // query rows per block: 64 per consumer warpgroup
+constexpr int TC_BK = 128;              // key rows per tile
+constexpr int TC_STAGES = 2;            // K/V ring depth
+constexpr int TC_THREADS = 384;         // consumer warpgroups 0 and 1, producer 2
+constexpr int TC_CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D> struct FwdSmem {
+  using QT = sm90::Tile<TC_BQ, D>;
+  using KT = sm90::Tile<TC_BK, D>;       // K and V tiles
+  static constexpr int K_OFF = QT::BYTES;
+  static constexpr int V_OFF = K_OFF + TC_STAGES * KT::BYTES;
+  static constexpr int BAR_OFF = V_OFF + TC_STAGES * KT::BYTES;
+  // q_full, full[TC_STAGES], empty[TC_STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * TC_STAGES) + sm90::SMEM_ALIGN;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int seq, int causal, float scale_log2) {
+  using L = FwdSmem<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::aligned_smem(smem_raw);
+  uint8_t* sq = smem;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + TC_STAGES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;   // heavy tiles first
+  const int hb = blockIdx.y;
+  const int k_end = causal ? min(seq, q0 + TC_BQ) : seq;
+  const int num_k = (k_end + TC_BK - 1) / TC_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], TC_CONSUMER_WARPS);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread issues every load
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(q_full, QT::BYTES);
+      for (int b = 0; b < QT::BOXES; ++b)
+        sm90::tma_load_3d(sq + b * QT::BOX_BYTES, &mq, q_full, b * QT::W, q0, hb);
+      for (int kt = 0; kt < num_k; ++kt) {
+        const int s = kt % TC_STAGES;
+        sm90::mbar_wait(&empty[s], ((kt / TC_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * KT::BYTES);
+        uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
+        uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+        for (int b = 0; b < KT::BOXES; ++b) {
+          sm90::tma_load_3d(sk + b * KT::BOX_BYTES, &mk, &full[s], b * KT::W,
+                            kt * TC_BK, hb);
+          sm90::tma_load_3d(sv + b * KT::BOX_BYTES, &mv, &full[s], b * KT::W,
+                            kt * TC_BK, hb);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64);
+    // this thread rows r0 and r0 + 8 (the accumulator layout, sm90.cuh)
+    sm90::regs_alloc<240>();
+    const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+    const int r0 = q0 + 64 * wg + 16 * w + l / 4;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};     // running max, log2 units
+    float lsum[2] = {0.f, 0.f};          // this thread's part of the row sum
+
+    const uint64_t q_desc = QT::kmajor(sq);
+    sm90::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < num_k; ++kt) {
+      const int s = kt % TC_STAGES;
+      const uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
+      const uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+      sm90::mbar_wait(&full[s], (kt / TC_STAGES) & 1);
+
+      // S = Q K^T over this warpgroup's 64 rows and the tile's 128 keys
+      float sc[TC_BK / 2];
+#pragma unroll
+      for (int i = 0; i < TC_BK / 2; ++i) sc[i] = 0.f;
+      const uint64_t qd = sm90::opaque(q_desc), kd = sm90::opaque(KT::kmajor(sk));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<TC_BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
+                               KT::kmajor_at(kd, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // online softmax on the fragment; only the last tile needs the mask
+      const int k0 = kt * TC_BK;
+      const bool edge = kt == num_k - 1;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * (l % 4) + (e & 1);
+          const int row = r0 + 8 * (e >> 1);
+          float x = sc[4 * j + e] * scale_log2;
+          if (edge && (col >= seq || (causal && col > row))) x = NEG_INF;
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sc[4 * j + e] - m[e >> 1]);
+          sc[4 * j + e] = p;
+          rs[e >> 1] += p;
+        }
+      // P as bf16 A fragments: neighbouring columns paired, no transpose
+      uint32_t pa[TC_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = sm90::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) lsum[h] = alpha[h] * lsum[h] + rs[h];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V, V read MN-major
+      const uint64_t vd = sm90::opaque(KT::mnmajor(sv));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk)
+        sm90::Wgmma<D>::rs(acc, pa[kk], KT::mnmajor_at(vd, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      if (l == 0) sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+      const int row = r0 + 8 * h;
+      if (row >= seq) continue;
+      const float inv = 1.f / lsum[h];
+      __nv_bfloat16* orow = o + ((size_t)hb * seq + row) * D + 2 * (l % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = sm90::pack_bf16(
+            acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      if (lse != nullptr && l % 4 == 0)
+        lse[(size_t)hb * seq + row] = m[h] * LN2 + logf(lsum[h]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         void* lse, int hb, int seq, int causal, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = sm90::tile_map<TC_BQ, D>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mv, v, hb, seq);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(o) % 4 != 0) return cudaErrorMisalignedAddress;
+  const int bytes = FwdSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + TC_BQ - 1) / TC_BQ, hb);
+  flash_fwd_wgmma_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      seq, causal, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+// the scalar kernel for f32, the tensor-core kernel for bf16
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int hb, int seq, int causal, float scale,
+                     cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch_wgmma<D>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+  else
+    return launch<T, D>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        void* lse, int hb, int seq, int d, int causal,
                        float scale, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, hb, seq, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, hb, seq, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, hb, seq, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+    case 16: return launch_d<T, 16>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+    case 32: return launch_d<T, 32>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+    case 64: return launch_d<T, 64>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+    case 128: return launch_d<T, 128>(q, k, v, o, lse, hb, seq, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -249,7 +488,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns the launch's
-// cudaGetLastError() (0 on success); the kernel runs on `stream`, unsynced.
+// cudaGetLastError() (0 on success), or the error of making the bf16
+// kernel's tensor maps (inputs must be 16-byte aligned); the kernel runs
+// on `stream`, unsynced.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int hb, int seq, int d, int dtype,
                          int causal, float scale, void* stream) {

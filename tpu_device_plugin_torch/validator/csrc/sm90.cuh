@@ -1,0 +1,381 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels.
+//
+// - mbarriers: init, arrive, arrive with an expected transaction count,
+//   and a parity wait.
+// - TMA: a 3-D tile load (`cp.async.bulk.tensor`) that completes on an
+//   mbarrier, and the host-side tensor map for a contiguous
+//   (hb, seq, d) bf16 tensor. The map is made by the driver's
+//   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so the
+//   libraries stay plain C with no -lcuda.
+// - wgmma: the shared-memory matrix descriptor, fence / commit / wait, and
+//   the m64nNk16 bf16 -> f32 products in two forms: SS (A and B K-major in
+//   shared memory) and RS (A in registers, B MN-major in shared memory).
+//
+// Tile layout. A (ROWS x D) bf16 tile is brought in by TMA as D / W boxes
+// of W = min(D, 64) columns; a box holds ROWS rows of 2W bytes, and the
+// hardware swizzles it with the matching span (128, 64 or 32 bytes: d 128
+// and 64, d 32, d 16). At d 128 a row (256 bytes) is wider than the
+// 128-byte span, hence the two boxes. The same bytes serve as a K-major
+// operand (rows are M or N, columns the reduction) and as an MN-major one
+// (rows are the reduction, columns N); `Tile` gives the wgmma descriptor
+// of the tile in either reading and of its 16-deep slices. The start
+// address fills the descriptor's low 14 bits (address / 16, below 2^14
+// for any shared-memory address), so a slice is the tile's descriptor
+// plus its offset / 16.
+//
+// The wgmma accumulator of an m64nN product, per thread t of the
+// warpgroup (warp w = t / 32, lane l = t % 32), holds for j < N / 8:
+//   d[4j + 0], d[4j + 1]: row 16w + l/4,     columns 8j + 2(l%4), +1
+//   d[4j + 2], d[4j + 3]: row 16w + l/4 + 8, the same columns.
+// Rows reduce over the 4 lanes of a quad (shuffles xor 1 and 2). The A
+// fragment of an RS product over reduction columns [16kk, 16kk + 16) is
+// that accumulator's d[8kk .. 8kk + 8) packed in neighbouring pairs.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers ---------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// makes the inits visible to the async proxy (TMA) and the other threads
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A fresh
+// barrier is in phase 0: waiting on parity 1 returns at once, on parity 0
+// only after the first phase completes. A wait that outlasts 2^30 polls
+// (seconds; a protocol fault, never a slow load) traps, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 30)) __trap();
+  }
+}
+
+// --- TMA ---------------------------------------------------------------
+
+// Box at element coordinates (c0 column, c1 row, c2 slab) of `map` into
+// shared memory at `dst`; its bytes count against `bar`'s transactions.
+// Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --- registers -----------------------------------------------------------
+
+// Warp-specialised register split (all four warps of a warpgroup).
+template <int N> __device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+// Pins values to this point of the program: wgmma reads its A fragment
+// and writes its accumulator asynchronously, so the compiler must neither
+// read the accumulator before the wait nor reuse the fragment's registers
+// before it.
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// Two floats as one bf16x2 register: `lo` in the low half (the lower
+// column of an A-fragment pair).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// --- wgmma ---------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), and the swizzle of a span of SW bytes.
+template <int SW>
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle span");
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | layout << 62;
+}
+
+// Hides a value's origin from the compiler, so that descriptors built
+// from it are made next to the wgmma that reads them and are not hoisted
+// out of a loop (sixteen 64-bit descriptors held across a loop cost 32
+// registers).
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+template <int ROWS, int D> struct Tile {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(ROWS % 64 == 0 && ROWS <= 256, "rows per tile");
+  static constexpr int W = D < 64 ? D : 64;    // columns per TMA box
+  static constexpr int SW = 2 * W;             // bytes per box row = swizzle span
+  static constexpr int BOXES = D / W;
+  static constexpr int BOX_BYTES = ROWS * SW;
+  static constexpr int BYTES = BOXES * BOX_BYTES;
+
+  // Descriptor of the tile read K-major: 8-row groups are 8·SW bytes
+  // apart; the leading offset is unused for a swizzled K-major operand.
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* t) {
+    return desc<SW>(t, 16, 8 * SW);
+  }
+  // ... of its 16-column slice kk from row r0 (a multiple of 8) on: the
+  // start address moves, in 16-byte units, inside the swizzle span
+  static __device__ __forceinline__ uint64_t kmajor_at(uint64_t base, int r0,
+                                                       int kk) {
+    const int c = 16 * kk;
+    return base + (((c / W) * BOX_BYTES + r0 * SW + (c % W) * 2) >> 4);
+  }
+  // Descriptor of the tile read MN-major (rows are the reduction): the
+  // next W-column box is the leading offset, the next 8 rows the stride.
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t) {
+    return desc<SW>(t, BOX_BYTES, 8 * SW);
+  }
+  // ... of its 16-row slice kk
+  static __device__ __forceinline__ uint64_t mnmajor_at(uint64_t base,
+                                                        int kk) {
+    return base + ((16 * kk * SW) >> 4);
+  }
+};
+
+// m64nNk16 products; SS forms for the N the kernels use as score widths
+// (64, 128), RS forms for every head dim
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<16> {
+  // d[8] += A (registers, bf16 pairs) x B (smem, MN-major); A is 64 x 16, B is 16 x 16
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma<32> {
+  // d[16] += A (registers, bf16 pairs) x B (smem, MN-major); A is 64 x 16, B is 16 x 32
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // d[32] += A (smem, K-major) x B (smem, K-major); A is 64 x 16, B is 64 x 16
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // d[32] += A (registers, bf16 pairs) x B (smem, MN-major); A is 64 x 16, B is 16 x 64
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // d[64] += A (smem, K-major) x B (smem, K-major); A is 64 x 16, B is 128 x 16
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // d[64] += A (registers, bf16 pairs) x B (smem, MN-major); A is 64 x 16, B is 16 x 128
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+
+// --- host: tensor maps ---------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded; null
+// if the driver has none
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous (hb, seq, d) bf16 tensor, read in boxes of
+// `Tile<ROWS, D>`: dims (d, seq, hb) innermost first, so a box that runs
+// past `seq` is filled with zeros.
+template <int ROWS, int D>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int hb, int seq) {
+  using T = Tile<ROWS, D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(hb)};
+  const cuuint64_t strides[2] = {2ull * D, 2ull * D * seq};   // bytes
+  const cuuint32_t box[3] = {T::W, ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory starts 16-byte aligned; swizzled tiles need their
+// span's atom (up to 1024 bytes) aligned, so kernels round the base up and
+// ask for this much more.
+constexpr int SMEM_ALIGN = 1024;
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + ((SMEM_ALIGN - a % SMEM_ALIGN) % SMEM_ALIGN);
+}
+
+}  // namespace sm90

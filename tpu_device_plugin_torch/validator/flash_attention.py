@@ -15,7 +15,10 @@ either direction:
 counterpart of the TPU version's `custom_vjp`. Each kernel has a plain
 PyTorch version computed in f32 (`flash_attention_plain`,
 `flash_bwd_dkv_plain`, `flash_bwd_dq_plain`), which is what a CPU tensor
-gets; a CUDA tensor launches the kernel or raises, never falls back.
+gets; a CUDA tensor launches the kernel or raises, never falls back. With
+bf16 inputs the plain versions of K1 and K2 round P (and K2's dS) to bf16
+before the products that take them, as the kernels' tensor-core products
+and the JAX kernels do; in f32 nothing is rounded.
 
 The TPU version's block sizes were VMEM tile choices; the CUDA kernels'
 tiles are their own compile-time constants, so they are not arguments.
@@ -32,6 +35,9 @@ NEG_INF = -1e30
 
 # head dims the CUDA kernels are instantiated for (csrc/*.cu)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# K1's key tile (TC_BK in csrc/flash_fwd.cu); the plain forward rounds P
+# over key blocks of this size, as K1 does
+KEY_BLOCK = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # CUDA kernel launches per kernel since import (or since the caller last
@@ -57,19 +63,53 @@ def flash_attention_plain(q, k, v, sm_scale: float, causal: bool,
     """K1's function in plain PyTorch, computed in f32.
 
     Returns `o` in q's dtype and, with `return_lse`, the per-row logsumexp
-    of the scaled, masked scores as f32 (heads_batch, seq)."""
+    of the scaled, masked scores as f32 (heads_batch, seq). In f32,
+    o = exp(s - lse) V. Otherwise P is rounded to q's dtype before the P V
+    product, as K1 and the JAX kernel round it (flash_attention.py:111):
+    see `_rounded_pv`."""
     qf, kf, vf = q.float(), k.float(), v.float()
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
     if causal:
         s = torch.where(_causal_mask(q.shape[1], q.device), s, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]), vf)
+    if q.dtype == torch.float32:
+        o = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]), vf)
+    else:
+        o = _rounded_pv(s, v)
     o = o.to(q.dtype)
     return (o, lse) if return_lse else o
 
 
-def _p_ds(q, k, v, do, lse, di, sm_scale: float, causal: bool):
-    """P and dS of the FlashAttention-2 backward, f32, zero where masked."""
+def _rounded_pv(s, v):
+    """softmax(s) V by the online recurrence over key blocks of KEY_BLOCK,
+    K1's tiles: per block p = exp(s - m) against the running row max m,
+    rounded to v's dtype for the product, the accumulator rescaled by
+    exp(m_old - m_new), the row sum l taken from the unrounded p, and
+    o = acc / l at the end (f32). Blocks wholly above a causal diagonal,
+    which K1 skips, leave m, l and acc exactly as they were."""
+    hb, seq, _ = s.shape
+    m = torch.full((hb, seq), NEG_INF, device=s.device)
+    l = torch.zeros((hb, seq), device=s.device)
+    acc = torch.zeros((hb, seq, v.shape[-1]), device=s.device)
+    for k0 in range(0, seq, KEY_BLOCK):
+        sb = s[:, :, k0:k0 + KEY_BLOCK]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        p = torch.exp(sb - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p.to(v.dtype).float(),
+            v[:, k0:k0 + KEY_BLOCK].float())
+        m = m_new
+    return acc / l[..., None]
+
+
+def _p_ds(q, k, v, do, lse, di, sm_scale: float, causal: bool,
+          round_to=None):
+    """P and dS of the FlashAttention-2 backward, f32, zero where masked.
+    With `round_to`, both are rounded to that dtype (and held in f32), as
+    K2 and the JAX kernels round them before their products; dS is taken
+    from the unrounded P. In f32 the rounding is the identity."""
     qf, kf = q.float(), k.float()
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
@@ -79,22 +119,56 @@ def _p_ds(q, k, v, do, lse, di, sm_scale: float, causal: bool):
         mask = _causal_mask(q.shape[1], q.device)
         p = torch.where(mask, p, 0.0)
         ds = torch.where(mask, ds, 0.0)
+    if round_to is not None:
+        p, ds = p.to(round_to).float(), ds.to(round_to).float()
     return p, ds
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
     """K2's function in plain PyTorch: (dk, dv) in f32, from the f32
-    (heads_batch, seq) lse and D = rowsum(dO * O)."""
-    p, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal)
+    (heads_batch, seq) lse and D = rowsum(dO * O); P and dS are rounded to
+    q's dtype before dV = P^T dO and dK = dS^T Q (flash_attention.py:224,
+    :227)."""
+    p, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal, round_to=q.dtype)
     dv = torch.einsum("bqk,bqd->bkd", p, do.float())
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     return dk, dv
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
-    """K3's function in plain PyTorch: dq in f32."""
+    """K3's function in plain PyTorch: dq in f32, with dS in f32 (K3 does
+    not round it yet)."""
     _, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal)
     return torch.einsum("bqk,bkd->bqd", ds, k.float())
+
+
+def rounding_terms_fwd(q, k, v, lse, sm_scale: float, causal: bool):
+    """For each element of K1's output, the largest term of its sum
+    P V, bounded by w[r] max_i |v[i, c]| with w[r] = max_i P[r, i] =
+    exp(max_i s[r, i] - lse[r]) (f32, of o's shape).
+
+    With bf16 inputs K1 and `flash_attention_plain` round P to bf16 from
+    scores that differ in the last f32 bits (another summation order), so
+    now and then one P rounds the other way: one bf16 ulp, at most 2^-7 of
+    that P, and of its term in o. A check allows that much beside the
+    output's own rounding."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[1], q.device), s, NEG_INF)
+    w = torch.exp(s.amax(dim=-1) - lse)
+    return w[..., None] * v.float().abs().amax(dim=1, keepdim=True)
+
+
+def rounding_terms_dkv(q, k, v, do, lse, di, sm_scale: float, causal: bool):
+    """As `rounding_terms_fwd`, for K2: the largest term of each element of
+    dk (max_q |dS[q, k]| max_q |Q[q, c]|) and of dv (max_q P[q, k]
+    max_q |dO[q, c]|), the P and dS that K2 and `flash_bwd_dkv_plain`
+    round to bf16."""
+    p, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal, round_to=q.dtype)
+    pmax, dsmax = p.amax(dim=1), ds.abs().amax(dim=1)
+    del p, ds
+    return (dsmax[..., None] * q.float().abs().amax(dim=1, keepdim=True),
+            pmax[..., None] * do.float().abs().amax(dim=1, keepdim=True))
 
 
 def _row_dot(do, o) -> torch.Tensor:
