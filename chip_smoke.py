@@ -50,12 +50,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # absolute term covers elements near 0, where only f32 summation noise is
 # left, and gradients that vanish (seq 1: one key, dq and dk are rounding
 # noise); at the mfu shape, where max |g| is near 5 and most elements are
-# a few hundredths, it is 5e-4 in bf16. With bf16 inputs K1 rounds P, and
-# K2 P and dS, to bf16, as their plain versions do; their scores come
-# from another summation order, so now and then one of them rounds the
-# other way, by one bf16 ulp (at most 2^-7 of it): `term` is the largest
-# single term of the element's sum (flash_attention.rounding_terms_fwd,
-# rounding_terms_dkv), allowed once. K3 rounds nothing and has no term.
+# a few hundredths, it is 5e-4 in bf16. With bf16 inputs K1 rounds P, K2
+# P and dS, and K3 dS, to bf16, as their plain versions do; their scores
+# come from another summation order, so now and then one of them rounds
+# the other way, by one bf16 ulp (at most 2^-7 of it): `term` is the
+# largest single term of the element's sum
+# (flash_attention.rounding_terms_fwd, _dkv, _dq), allowed once.
 GRAD_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
 GRAD_ATOL = {"bfloat16": 1e-4, "float32": 1e-5}
 FLIP_RTOL = 2 ** -7
@@ -275,8 +275,12 @@ def check_flash_bwd(torch, fa, dev):
         err_dv = _elem_err(dv, ref_dv, dt, term_dv)
         err_dkv = {key: max(err_dk[key], err_dv[key]) for key in err_dk}
         del ref_dk, ref_dv, term_dk, term_dv
+        term_dq = (fa.rounding_terms_dq(q, k, v, do, lse, di, scale, causal)
+                   if dt == "bfloat16" else None)
         err_dq = _elem_err(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, di,
-                                                     scale, causal), dt)
+                                                     scale, causal), dt,
+                           term_dq)
+        del term_dq
         torch.cuda.empty_cache()
         for name, err in (("flash_bwd_dkv", err_dkv),
                           ("flash_bwd_dq", err_dq)):

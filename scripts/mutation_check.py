@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Shows that chip_smoke.py's kernel checks fail a kernel that is wrong.
 
-    python3 scripts/mutation_check.py [--out DIR]
+    python3 scripts/mutation_check.py [--out DIR] [--variants]
 
 Run from the repository root on a machine with a CUDA card. For each
 mutation below it copies tpu_device_plugin_torch/ into a fresh directory
@@ -10,6 +10,12 @@ source there, and runs chip_smoke's phase-3 check of that kernel against
 the copy (which builds its own libraries). A mutation is caught when the
 check raises; the script prints, per mutation, the check line that failed
 (tol_ratio, max_rel_err), and exits non-zero if any mutation passed.
+
+With --variants it instead runs the same check on each variant below (a
+one-line change that must still pass), between two runs of the source as
+it is, and prints each run's timing lines and the ptxas registers and
+spills of its tensor-core instances; it exits non-zero if a variant fails
+the check.
 """
 
 from __future__ import annotations
@@ -38,14 +44,42 @@ MUTATIONS = [
      "  const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal",
      "  const int q_begin = causal ? k0 / TC_BQ + (blockIdx.x == gridDim.x - 1) : 0;",
      "check_flash_bwd"),
+    ("K3 skips the diagonal key tile (query tiles after the first)",
+     f"{CSRC}/flash_bwd.cu",
+     "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK;",
+     "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK - (causal && q0 > 0);",
+     "check_flash_bwd"),
+]
+
+# (name, source, line as it is, line as changed, chip_smoke check)
+VARIANTS = [
+    ("K3 with 128-key tiles",
+     f"{CSRC}/flash_bwd.cu",
+     "constexpr int DQ_BK = 64;               // key rows per streamed tile",
+     "constexpr int DQ_BK = 128;              // key rows per streamed tile",
+     "check_flash_bwd"),
+    ("K3 with a three-stage K / V ring",
+     f"{CSRC}/flash_bwd.cu",
+     "constexpr int DQ_STAGES = 2;            // K / V ring depth",
+     "constexpr int DQ_STAGES = 3;            // K / V ring depth",
+     "check_flash_bwd"),
 ]
 
 CHILD = """
 import json, sys, torch
 sys.path.append({root!r})
+sys.path.append({scripts!r})
 import chip_smoke
+from tpu_device_plugin_torch.validator import _kernels
 from tpu_device_plugin_torch.validator import flash_attention as fa
+from sass_census import ptxas_info   # puts the root first on sys.path
 assert fa.__file__.startswith({copy!r}), fa.__file__
+_kernels.build_all()
+info = {{}}
+for log in _kernels.build_log.values():
+    info.update(ptxas_info(log))
+print(json.dumps({{"ptxas": {{k: v for k, v in info.items() if "wgmma" in k}}}}),
+      flush=True)
 try:
     chip_smoke.{check}(torch, fa, torch.device("cuda", 0))
 except AssertionError:
@@ -61,20 +95,23 @@ def run(name, source, before, after, check, out_dir: Path) -> dict:
     path = copy / source
     text = path.read_text()
     if text.count(before) != 1:
-        raise SystemExit(f"{source}: the line to mutate is not there once: "
+        raise SystemExit(f"{source}: the line to change is not there once: "
                          f"{before!r}")
     path.write_text(text.replace(before, after))
     env = dict(os.environ, PYTHONPATH=str(copy))
     proc = subprocess.run(
-        [sys.executable, "-c", CHILD.format(root=str(ROOT), copy=str(copy),
-                                            check=check)],
+        [sys.executable, "-c", CHILD.format(
+            root=str(ROOT), scripts=str(ROOT / "scripts"), copy=str(copy),
+            check=check)],
         cwd=copy, env=env, capture_output=True, text=True, timeout=900)
     lines = [json.loads(ln) for ln in proc.stdout.splitlines()
              if ln.startswith("{")]
     failed = [ln for ln in lines if ln.get("ok") is False]
     shutil.rmtree(copy, ignore_errors=True)
-    return {"mutation": name, "source": source, "caught": proc.returncode == 3,
+    return {"change": name, "source": source, "caught": proc.returncode == 3,
             "exit": proc.returncode, "failed_check": failed[0] if failed else None,
+            "timing": [ln for ln in lines if "ms" in ln],
+            "ptxas": next((ln["ptxas"] for ln in lines if "ptxas" in ln), {}),
             "stderr_tail": proc.stderr[-2000:] if proc.returncode not in (0, 3)
             else ""}
 
@@ -82,14 +119,23 @@ def run(name, source, before, after, check, out_dir: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
-                    help="directory for the mutated copies")
+                    help="directory for the changed copies")
+    ap.add_argument("--variants", action="store_true",
+                    help="time the variants instead of catching mutations")
     args = ap.parse_args()
     out_dir = args.out or Path(tempfile.mkdtemp(prefix="mutation-check-"))
     out_dir.mkdir(parents=True, exist_ok=True)
-    results = [run(*m, out_dir) for m in MUTATIONS]
+    if args.variants:
+        _, source, before, _, check = VARIANTS[0]
+        as_is = ("as it is", source, before, before, check)
+        results = [run(*v, out_dir) for v in (as_is, *VARIANTS, as_is)]
+        ok = all(r["exit"] == 0 for r in results)
+    else:
+        results = [run(*m, out_dir) for m in MUTATIONS]
+        ok = all(r["caught"] for r in results)
     for r in results:
         print(json.dumps(r), flush=True)
-    return 0 if all(r["caught"] for r in results) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

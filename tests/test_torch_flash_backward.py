@@ -8,8 +8,10 @@ seed) and the same o and lse (the port's plain forward in f32; the JAX
 kernels read lse lane-replicated to 128, the port as (heads_batch, seq)).
 
 Tolerances are the JAX tests' own (tests/test_flash_attention.py): f32
-< 1e-4 (summation order only) and bf16 < 1e-1 (the JAX kernels round P
-and dS to bf16 before the dV, dK and dQ products; the port stays in f32).
+< 1e-4 (summation order only) and bf16 < 1e-1. With bf16 inputs the port's
+plain versions round P and dS to bf16 before the dV, dK and dQ products,
+as the JAX kernels do, so they are also held to the much tighter 2e-3
+(`test_rounding_plain_backward_matches_jax_kernels`).
 
 The CUDA kernels run only on a card: tests/test_torch_gpu.py holds them
 against the plain version there.
@@ -153,28 +155,36 @@ def test_launch_bwd_output_checks():
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("seq,block", [(96, 64), (128, 32), (200, 128)])
-def test_rounding_plain_dkv_matches_jax_kernels(d, causal, seq, block):
+def test_rounding_plain_backward_matches_jax_kernels(d, causal, seq, block):
     """In bf16 the plain K2 rounds P and dS to bf16 before dV = P^T dO and
-    dK = dS^T Q, as the JAX kernel does (:224, :227): dk and dv agree with
-    `_flash_bwd_3d` to < 1e-2 (the bar above is 1e-1)."""
+    dK = dS^T Q, and the plain K3 rounds dS before dQ = dS K, as the JAX
+    kernels do (:224, :227, :262). With f32 outputs (`out_dtype`, both
+    sides) dq, dk and dv agree with `_flash_bwd_3d` to < 1e-3: they differ
+    at most 3.2e-4 over these cases, where dq from an unrounded dS was off
+    by 1.65e-3 to 5.0e-3. In bf16 outputs the same sums can round one
+    output ulp apart (3.9e-3 for dv at d 32, causal, seq 200): < 1e-2 (the
+    bar above is 1e-1)."""
     q, k, v, do = (to_torch(a, "bfloat16") for a in arrays(2, seq, d, 5 + seq + d))
     scale = d ** -0.5
     o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
-    _, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale,
-                                              causal)
     jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
                             (*lse.shape, jfa.LANES))
-    _, rdk, rdv = jfa._flash_bwd_3d(
-        *(to_jax(as_np(t), jnp.bfloat16) for t in (q, k, v, o)), jlse,
-        to_jax(as_np(do), jnp.bfloat16), scale, causal, block, block, True)
-    for g, r in ((dk, rdk), (dv, rdv)):
-        assert np.max(np.abs(as_np(g) - as_np(r))) < 1e-2
+    for out_dtype, jout, tol in ((torch.float32, jnp.float32, 1e-3),
+                                 (None, None, 1e-2)):
+        grads = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale,
+                                              causal, out_dtype)
+        ref = jfa._flash_bwd_3d(
+            *(to_jax(as_np(t), jnp.bfloat16) for t in (q, k, v, o)), jlse,
+            to_jax(as_np(do), jnp.bfloat16), scale, causal, block, block,
+            True, out_dtype=jout)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            assert np.max(np.abs(as_np(g) - as_np(r))) < tol, (name, out_dtype)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_in_f32_is_unrounded(causal):
-    """In f32 the rounding is the identity: K2's plain version equals the
-    products of the unrounded P and dS bit for bit, and K3's never rounds."""
+    """In f32 the rounding is the identity: K2's and K3's plain versions
+    equal the products of the unrounded P and dS bit for bit."""
     q, k, v, do = (to_torch(a, "float32") for a in arrays(2, 96, 32, 8))
     scale = 32 ** -0.5
     o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
@@ -183,7 +193,10 @@ def test_plain_backward_in_f32_is_unrounded(causal):
     dk, dv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, di, scale, causal)
     assert torch.equal(dv, torch.einsum("bqk,bqd->bkd", p, do))
     assert torch.equal(dk, torch.einsum("bqk,bqd->bkd", ds, q))
-    # bf16: P and dS rounded for K2, dS unrounded for K3
+    assert torch.equal(tfa.flash_bwd_dq_plain(q, k, v, do, lse, di, scale,
+                                              causal),
+                       torch.einsum("bqk,bkd->bqd", ds, k))
+    # bf16: P and dS rounded for K2, the same rounded dS for K3
     qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
     pb, dsb = tfa._p_ds(qb, kb, vb, dob, lse, di, scale, causal)
     rp, rds = tfa._p_ds(qb, kb, vb, dob, lse, di, scale, causal,
@@ -192,7 +205,7 @@ def test_plain_backward_in_f32_is_unrounded(causal):
     assert torch.equal(rds, dsb.bfloat16().float())
     assert torch.equal(tfa.flash_bwd_dq_plain(qb, kb, vb, dob, lse, di, scale,
                                               causal),
-                       torch.einsum("bqk,bkd->bqd", dsb, kb.float()))
+                       torch.einsum("bqk,bkd->bqd", rds, kb.float()))
 
 
 def test_rounding_terms_dkv_bound_every_term():
@@ -210,3 +223,19 @@ def test_rounding_terms_dkv_bound_every_term():
     dv_terms = (p[..., None] * do.float().abs()[:, :, None]).amax(dim=1)
     assert term_dk.shape == term_dv.shape == q.shape
     assert bool((dk_terms <= term_dk).all()) and bool((dv_terms <= term_dv).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rounding_terms_dq_bound_every_term(causal):
+    """`rounding_terms_dq` is no smaller than any single term of dq's sums
+    (dS[q, k] K[k, c])."""
+    q, k, v, do = (to_torch(a, "bfloat16") for a in arrays(2, 64, 16, 13))
+    scale = 0.25
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
+    di = tfa._row_dot(do, o)
+    term = tfa.rounding_terms_dq(q, k, v, do, lse, di, scale, causal)
+    _, ds = tfa._p_ds(q, k, v, do, lse, di, scale, causal,
+                      round_to=torch.bfloat16)
+    terms = (ds.abs()[..., None] * k.float().abs()[:, None]).amax(dim=2)
+    assert term.shape == q.shape
+    assert bool((terms <= term).all())

@@ -8,18 +8,18 @@ This file imports no JAX, so it runs where only PyTorch is installed. Each
 kernel is held against its plain PyTorch version on the same inputs:
 
 - K1, K2, K3: element by element, |d| <= GRAD_ATOL x max(max |g|, 1)
-  + GRAD_RTOL x |g| (+ FLIP_RTOL x term for K1 and K2 with bf16 inputs);
+  + GRAD_RTOL x |g| (+ FLIP_RTOL x term with bf16 inputs);
   K1's |dlse| <= 1e-3. Both compute in f32 from the same inputs (lse and D
   in the backward); two bf16 outputs rounded from nearly equal f32 values
   differ by at most one ulp, 2^-7 of |g|; f32 outputs differ only by
   summation order. The absolute term is for elements near 0, where only
   f32 summation noise is left, and for gradients that vanish: at seq 1
   softmax has one key, and dq and dk are rounding noise around 0. With
-  bf16 inputs K1 rounds P, and K2 P and dS, to bf16, as their plain
+  bf16 inputs K1 rounds P, K2 P and dS, and K3 dS, to bf16, as their plain
   versions do, from scores summed in another order: now and then one
   rounds the other way, by one bf16 ulp (2^-7 of it), so the largest
-  single term of the element's sum (`rounding_terms_fwd`, `_dkv`) is
-  allowed once.
+  single term of the element's sum (`rounding_terms_fwd`, `_dkv`, `_dq`)
+  is allowed once.
 """
 
 import numpy as np
@@ -104,7 +104,8 @@ def test_backward_kernels_match_plain(cuda_device, dtype, d, causal, seq):
     assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
     di = (do.float() * o.float()).sum(-1)
-    terms = ((None, *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, causal))
+    terms = ((fa.rounding_terms_dq(q, k, v, do, lse, di, scale, causal),
+              *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, causal))
              if dtype == "bfloat16" else (None, None, None))
     for name, g, ref, term in zip(("dq", "dk", "dv"), grads, refs, terms):
         assert g.dtype == q.dtype and g.shape == q.shape
@@ -123,7 +124,8 @@ def test_backward_kernels_f32_out_and_one_pass_alone(cuda_device):
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, True,
                                         out_dtype=torch.float32)
     di = (do.float() * o.float()).sum(-1)
-    terms = (None, *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, True))
+    terms = (fa.rounding_terms_dq(q, k, v, do, lse, di, scale, True),
+             *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, True))
     for g, ref, term in zip(grads, refs, terms):
         assert g.dtype == torch.float32
         assert grad_close(g, ref, "float32", term)

@@ -6,8 +6,8 @@
 // - `_flash_bwd_dkv_kernel` (:196) -> K2: per key tile, over the query
 //   tiles at or below the diagonal, P = exp(Q K^T * scale - lse),
 //   dV += P^T dO, dP = dO V^T, dS = P * (dP - D) * scale, dK += dS^T Q;
-// - `_flash_bwd_dq_kernel` (:236) -> flash_bwd_dq_kernel (K3): per query
-//   tile, over the key tiles up to the diagonal, the same dS, dQ += dS K.
+// - `_flash_bwd_dq_kernel` (:236) -> K3: per query tile, over the key
+//   tiles up to the diagonal, the same dS, dQ += dS K.
 // D = rowsum(dO * O) is computed by the caller, in f32, from the saved
 // output, as the TPU version does (:286-290). q, k, v, dO are contiguous
 // (hb, seq, d); lse and D are f32 (hb, seq).
@@ -36,9 +36,30 @@
 //   `flash_bwd_dkv_plain` rounds the same P and dS.
 // - No atomics: the result is deterministic.
 //
-// K3 (all dtypes) and K2 for f32 inputs: the first, scalar design, exact:
-// f32 tiles in shared memory, scalar f32 FMAs, 4 x 4 register tiles per
-// thread; K3 keeps dS in f32 (its redesign is the next step). On the
+// K3 for bf16 inputs (flash_bwd_dq_wgmma_kernel; bf16 or f32 outputs):
+// tensor cores, in K1's orientation: the accumulator rows are queries, so
+// they line up with lse and D, and dS is born in the layout dQ += dS K
+// needs.
+// - One block per (128-row query tile, hb), heavy tiles first: two
+//   consumer warpgroups of 64 query rows each, with Q and dO resident in
+//   shared memory, and one producer thread that streams 64-row K and V
+//   tiles by TMA through a two-stage mbarrier ring, from key tile 0 up to
+//   the diagonal when causal. Each consumer thread holds the lse (log2
+//   units) and D of its two rows in registers for the whole loop, and dQ
+//   in f32 registers (64 per thread at d 128); setmaxnreg gives the
+//   consumers 240.
+// - S = Q K^T and dP = dO V^T are wgmma SS products, issued as one group;
+//   P = exp(S scale - lse) and dS = P (dP - D) scale run on the
+//   accumulator fragments; dS, scaled, is rounded to bf16 in registers, as
+//   the JAX kernel rounds it (:262), and is the A operand of the RS
+//   product dQ += dS K, with K read MN-major from the bytes S read K-major.
+//   `flash_bwd_dq_plain` rounds the same dS.
+// - Only tiles that cross the diagonal or `seq` are masked; warpgroup 0
+//   skips the products of a causal block's last key tile, which lies
+//   wholly above its rows.
+//
+// K2 and K3 for f32 inputs: the first, scalar design, exact: f32 tiles in
+// shared memory, scalar f32 FMAs, 4 x 4 register tiles per thread. On the
 // tensor cores f32 would mean TF32, which the f32 bar refuses.
 //
 // Shared by both, against the TPU version:
@@ -56,8 +77,8 @@
 //   template parameter, so the stores do not branch), so the ring path's
 //   f32 partials from bf16 inputs need no other kernel (:277-280).
 // - At d = 128 the scalar K2's tiles take 170 KB and K3's 153 KB of shared
-//   memory, the tensor-core K2's 130 KB (bf16): dynamic shared memory,
-//   raised with cudaFuncSetAttribute.
+//   memory, the tensor-core K2's and K3's 130 and 129 KB (bf16): dynamic
+//   shared memory, raised with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,17 +92,7 @@ namespace {
 constexpr int BT = 64;         // rows per query or key tile
 constexpr int NT = 256;        // threads: a 16 x 16 grid, 4 x 4 outputs each
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename O> __device__ __forceinline__ O from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// --- f32 inputs and outputs: the scalar kernels --------------------------
 
 // Row strides in floats. D + 4 keeps rows 16-byte aligned for float4 reads
 // and spreads a quarter-warp's 8 rows over distinct bank groups.
@@ -96,15 +107,15 @@ template <int D> struct Smem {
       sizeof(float) * (4 * BT * LD + BT * LP + 2 * BT);
 };
 
-// Copies rows [r0, r0 + BT) of a (seq, D) slab into shared memory as f32
-// with row stride `ld`; rows at or past `seq` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+// Copies rows [r0, r0 + BT) of a (seq, D) slab into shared memory with row
+// stride `ld`; rows at or past `seq` are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           int r0, int seq) {
   for (int e = threadIdx.x; e < BT * D; e += NT) {
     const int r = e / D, c = e % D;
     const int row = r0 + r;
-    dst[r * ld + c] = row < seq ? to_f32(src[(size_t)row * D + c]) : 0.f;
+    dst[r * ld + c] = row < seq ? src[(size_t)row * D + c] : 0.f;
   }
 }
 
@@ -173,13 +184,13 @@ __device__ __forceinline__ void p_ds(float (&p)[4][4], float (&ds)[4][4],
   }
 }
 
-template <typename T, typename O, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ di, O* __restrict__ dk,
-                     O* __restrict__ dv, int seq, int causal, float scale) {
+                     const float* __restrict__ di, float* __restrict__ dk,
+                     float* __restrict__ dv, int seq, int causal, float scale) {
   using S = Smem<D>;
   constexpr int LD = S::LD, LP = S::LP, CD = D / 16;
   extern __shared__ float4 smem_f4[];
@@ -199,8 +210,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   lse += (size_t)blockIdx.y * seq;
   di += (size_t)blockIdx.y * seq;
 
-  load_tile<T, D>(sk, LD, k, k0, seq);
-  load_tile<T, D>(sv, LD, v, k0, seq);
+  load_tile<D>(sk, LD, k, k0, seq);
+  load_tile<D>(sv, LD, v, k0, seq);
 
   // this thread owns key rows ty + 16 i and columns tx + 16 c
   float adk[4][CD], adv[4][CD];
@@ -213,8 +224,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = causal ? blockIdx.x : 0; qt < num_q; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D>(sq, LD, q, q0, seq);
-    load_tile<T, D>(sdo, LD, dout, q0, seq);
+    load_tile<D>(sq, LD, q, q0, seq);
+    load_tile<D>(sdo, LD, dout, q0, seq);
     load_vec(slse, lse, q0, seq);
     load_vec(sdi, di, q0, seq);
     __syncthreads();
@@ -273,19 +284,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
       const size_t idx = slab + (size_t)row * D + tx + 16 * c;
-      dk[idx] = from_f32<O>(adk[i][c]);
-      dv[idx] = from_f32<O>(adv[i][c]);
+      dk[idx] = adk[i][c];
+      dv[idx] = adv[i][c];
     }
   }
 }
 
-template <typename T, typename O, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ di, O* __restrict__ dq, int seq,
-                    int causal, float scale) {
+                    const float* __restrict__ di, float* __restrict__ dq,
+                    int seq, int causal, float scale) {
   using S = Smem<D>;
   constexpr int LD = S::LD, LP = S::LP, CD = D / 16;
   extern __shared__ float4 smem_f4[];
@@ -304,8 +315,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   lse += (size_t)blockIdx.y * seq;
   di += (size_t)blockIdx.y * seq;
 
-  load_tile<T, D>(sq, LD, q, q0, seq);
-  load_tile<T, D>(sdo, LD, dout, q0, seq);
+  load_tile<D>(sq, LD, q, q0, seq);
+  load_tile<D>(sdo, LD, dout, q0, seq);
   load_vec(slse, lse, q0, seq);
   load_vec(sdi, di, q0, seq);
 
@@ -321,8 +332,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D>(sk, LD, k, k0, seq);
-    load_tile<T, D>(sv, LD, v, k0, seq);
+    load_tile<D>(sk, LD, k, k0, seq);
+    load_tile<D>(sv, LD, v, k0, seq);
     __syncthreads();
 
     float p[4][4], ds[4][4];
@@ -365,7 +376,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= seq) continue;
 #pragma unroll
     for (int c = 0; c < CD; ++c)
-      dq[slab + (size_t)row * D + tx + 16 * c] = from_f32<O>(adq[i][c]);
+      dq[slab + (size_t)row * D + tx + 16 * c] = adq[i][c];
   }
 }
 
@@ -600,47 +611,267 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// --- K3 for bf16 inputs: the tensor-core kernel -------------------------
+
+constexpr int DQ_BQ = 128;              // query rows per block: 64 per consumer warpgroup
+constexpr int DQ_BK = 64;               // key rows per streamed tile
+constexpr int DQ_STAGES = 2;            // K / V ring depth
+
+template <int D> struct DqSmem {
+  using QT = sm90::Tile<DQ_BQ, D>;       // Q and dO, resident
+  using KT = sm90::Tile<DQ_BK, D>;       // K and V, streamed
+  static constexpr int DO_OFF = QT::BYTES;
+  static constexpr int K_OFF = 2 * QT::BYTES;
+  static constexpr int V_OFF = K_OFF + DQ_STAGES * KT::BYTES;
+  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * KT::BYTES;
+  // q_full, full[DQ_STAGES], empty[DQ_STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + sm90::SMEM_ALIGN;
+};
+
+template <typename O, int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di, O* __restrict__ dq,
+                          int seq, int causal, float scale) {
+  using L = DqSmem<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;   // heavy tiles first
+  const int hb = blockIdx.y;
+  const int k_end = causal ? min(seq, q0 + DQ_BQ) : seq;
+  const int num_k = (k_end + DQ_BK - 1) / DQ_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], TC_CONSUMER_WARPS);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread issues every load
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(q_full, 2 * QT::BYTES);
+      for (int b = 0; b < QT::BOXES; ++b) {
+        sm90::tma_load_3d(smem + b * QT::BOX_BYTES, &mq, q_full, b * QT::W, q0, hb);
+        sm90::tma_load_3d(smem + L::DO_OFF + b * QT::BOX_BYTES, &mdo, q_full,
+                          b * QT::W, q0, hb);
+      }
+      for (int kt = 0; kt < num_k; ++kt) {
+        const int s = kt % DQ_STAGES;
+        sm90::mbar_wait(&empty[s], ((kt / DQ_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * KT::BYTES);
+        uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
+        uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+        for (int b = 0; b < KT::BOXES; ++b) {
+          sm90::tma_load_3d(sk + b * KT::BOX_BYTES, &mk, &full[s], b * KT::W,
+                            kt * DQ_BK, hb);
+          sm90::tma_load_3d(sv + b * KT::BOX_BYTES, &mv, &full[s], b * KT::W,
+                            kt * DQ_BK, hb);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows [q_lo, q_lo + 64); this
+    // thread rows r0 and r0 + 8 (the accumulator layout, sm90.cuh)
+    sm90::regs_alloc<240>();
+    const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+    const int q_lo = q0 + 64 * wg;
+    const int r0 = q_lo + 16 * w + l / 4;
+    const float scale_log2 = scale * LOG2E;
+    float lse2[2], drow[2];   // lse in log2 units, and D, of rows r0, r0 + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const bool in = row < seq;
+      lse2[h] = in ? lse[(size_t)hb * seq + row] * LOG2E : 0.f;
+      drow[h] = in ? di[(size_t)hb * seq + row] : 0.f;
+    }
+    float adq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+
+    const uint64_t q_desc = QT::kmajor(smem);
+    const uint64_t do_desc = QT::kmajor(smem + L::DO_OFF);
+    sm90::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < num_k; ++kt) {
+      const int s = kt % DQ_STAGES, k0 = kt * DQ_BK;
+      const uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
+      const uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+      sm90::mbar_wait(&full[s], (kt / DQ_STAGES) & 1);
+      if (causal && k0 >= q_lo + 64) {
+        // wholly above this warpgroup's rows: nothing to add, but the
+        // producer waits for every consumer warp to release the stage
+        if (l == 0) sm90::mbar_arrive(&empty[s]);
+        continue;
+      }
+
+      // S = Q K^T and dP = dO V^T over this warpgroup's 64 rows and the
+      // tile's keys, both SS, one group
+      const uint64_t qd = sm90::opaque(q_desc), dod = sm90::opaque(do_desc);
+      const uint64_t kd = sm90::opaque(KT::kmajor(sk));
+      const uint64_t vd = sm90::opaque(KT::kmajor(sv));
+      float sc[DQ_BK / 2], dp[DQ_BK / 2];
+#pragma unroll
+      for (int j = 0; j < DQ_BK / 2; ++j) sc[j] = dp[j] = 0.f;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<DQ_BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
+                               KT::kmajor_at(kd, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<DQ_BK>::ss(dp, QT::kmajor_at(dod, 64 * wg, kk),
+                               KT::kmajor_at(vd, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // P = exp(S scale - lse) and dS = P (dP - D) scale, from the f32 P
+      // and scaled before it is rounded, as in the JAX kernel; 0 outside
+      // the valid region, which only tiles on the diagonal or at `seq`
+      // need. Each dS pair goes to a bf16 A fragment as soon as it is made.
+      const bool edge = (causal && k0 + DQ_BK - 1 > q_lo) || k0 + DQ_BK > seq ||
+                        q_lo + 64 > seq;
+      uint32_t da[DQ_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float ds2[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int i = 8 * kk + 2 * c + x;   // accumulator index 4j + e
+            const int e = i % 4, h = e >> 1;
+            const int key = k0 + 8 * (i / 4) + 2 * (l % 4) + (e & 1);
+            const int row = r0 + 8 * h;
+            const bool ok = !edge || (row < seq && key < seq && (!causal || key <= row));
+            const float p = ok ? exp2f(sc[i] * scale_log2 - lse2[h]) : 0.f;
+            ds2[x] = ok ? p * (dp[i] - drow[h]) * scale : 0.f;
+          }
+          da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
+        }
+
+      // dQ += dS K (RS, K read MN-major)
+      const uint64_t km = sm90::opaque(KT::mnmajor(sk));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+        sm90::Wgmma<D>::rs(adq, da[kk], KT::mnmajor_at(km, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(adq);
+      sm90::fence_regs(da);
+      if (l == 0) sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= seq) continue;
+      const size_t base = ((size_t)hb * seq + row) * D + 2 * (l % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(dq + base + 8 * j, adq[4 * j + 2 * h], adq[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <typename O, int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* di, void* dq, int hb, int seq,
+                            int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = sm90::tile_map<DQ_BQ, D>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<DQ_BK, D>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<DQ_BK, D>(&mv, v, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<DQ_BQ, D>(&mdo, dout, hb, seq);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(dq) % 8 != 0) return cudaErrorMisalignedAddress;
+  const int bytes = DqSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<O, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + DQ_BQ - 1) / DQ_BQ, hb);
+  flash_bwd_dq_wgmma_kernel<O, D><<<grid, TC_THREADS, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, di, static_cast<O*>(dq), seq, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_scalar(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse, const float* di,
+                          float* dq, float* dk, float* dv, int hb, int seq,
+                          int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((seq + BT - 1) / BT, hb);
+  cudaError_t err;
+  if (dk != nullptr) {
+    const size_t bytes = Smem<D>::DKV_BYTES;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<D><<<grid, NT, bytes, stream>>>(
+        q, k, v, dout, lse, di, dk, dv, seq, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (dq != nullptr) {
+    const size_t bytes = Smem<D>::DQ_BYTES;
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<D><<<grid, NT, bytes, stream>>>(
+        q, k, v, dout, lse, di, dq, seq, causal, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// bf16 inputs take the tensor-core kernels, f32 inputs (and outputs) the
+// scalar ones: chosen by type at compile time
 template <typename T, typename O, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* di,
                    void* dq, void* dk, void* dv, int hb, int seq, int causal,
                    float scale, cudaStream_t stream) {
-  const dim3 grid((seq + BT - 1) / BT, hb);
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  cudaError_t err;
-  if (dk != nullptr) {
-    // K2: the tensor-core kernel for bf16 inputs, the scalar one for f32
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    cudaError_t err = cudaSuccess;
+    if (dk != nullptr)
       err = launch_dkv_wgmma<O, D>(q, k, v, dout, lse, di, dk, dv, hb, seq,
                                    causal, scale, stream);
-    } else {
-      const size_t bytes = Smem<D>::DKV_BYTES;
-      err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, O, D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      flash_bwd_dkv_kernel<T, O, D><<<grid, NT, bytes, stream>>>(
-          tq, tk, tv, tdo, lse, di, static_cast<O*>(dk), static_cast<O*>(dv),
-          seq, causal, scale);
-      err = cudaGetLastError();
-    }
-    if (err != cudaSuccess) return err;
+    if (err == cudaSuccess && dq != nullptr)
+      err = launch_dq_wgmma<O, D>(q, k, v, dout, lse, di, dq, hb, seq, causal,
+                                  scale, stream);
+    return err;
+  } else {
+    static_assert(std::is_same_v<T, float> && std::is_same_v<O, float>,
+                  "f32 inputs take f32 outputs");
+    return launch_scalar<D>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+        static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), hb, seq, causal, scale, stream);
   }
-  if (dq != nullptr) {
-    const size_t bytes = Smem<D>::DQ_BYTES;
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, O, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, O, D><<<grid, NT, bytes, stream>>>(
-        tq, tk, tv, tdo, lse, di, static_cast<O*>(dq), seq, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
 }
 
 template <typename T, typename O>

@@ -16,7 +16,7 @@ counterpart of the TPU version's `custom_vjp`. Each kernel has a plain
 PyTorch version computed in f32 (`flash_attention_plain`,
 `flash_bwd_dkv_plain`, `flash_bwd_dq_plain`), which is what a CPU tensor
 gets; a CUDA tensor launches the kernel or raises, never falls back. With
-bf16 inputs the plain versions of K1 and K2 round P (and K2's dS) to bf16
+bf16 inputs the plain versions round P (K1, K2) and dS (K2, K3) to bf16
 before the products that take them, as the kernels' tensor-core products
 and the JAX kernels do; in f32 nothing is rounded.
 
@@ -108,8 +108,9 @@ def _p_ds(q, k, v, do, lse, di, sm_scale: float, causal: bool,
           round_to=None):
     """P and dS of the FlashAttention-2 backward, f32, zero where masked.
     With `round_to`, both are rounded to that dtype (and held in f32), as
-    K2 and the JAX kernels round them before their products; dS is taken
-    from the unrounded P. In f32 the rounding is the identity."""
+    K2, K3 and the JAX kernels round them before their products; dS is
+    taken from the unrounded P and scaled before it is rounded. In f32 the
+    rounding is the identity."""
     qf, kf = q.float(), k.float()
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * sm_scale
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
@@ -136,9 +137,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float, causal: bool):
-    """K3's function in plain PyTorch: dq in f32, with dS in f32 (K3 does
-    not round it yet)."""
-    _, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal)
+    """K3's function in plain PyTorch: dq in f32; dS, scaled, is rounded
+    to q's dtype before dQ = dS K (flash_attention.py:262)."""
+    _, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal, round_to=q.dtype)
     return torch.einsum("bqk,bkd->bqd", ds, k.float())
 
 
@@ -169,6 +170,16 @@ def rounding_terms_dkv(q, k, v, do, lse, di, sm_scale: float, causal: bool):
     del p, ds
     return (dsmax[..., None] * q.float().abs().amax(dim=1, keepdim=True),
             pmax[..., None] * do.float().abs().amax(dim=1, keepdim=True))
+
+
+def rounding_terms_dq(q, k, v, do, lse, di, sm_scale: float, causal: bool):
+    """As `rounding_terms_dkv`, for K3: the largest term of each element of
+    dq, max_k |dS[q, k]| max_k |K[k, c]|, the dS that K3 and
+    `flash_bwd_dq_plain` round to bf16."""
+    _, ds = _p_ds(q, k, v, do, lse, di, sm_scale, causal, round_to=q.dtype)
+    dsmax = ds.abs().amax(dim=2)
+    del ds
+    return dsmax[..., None] * k.float().abs().amax(dim=1, keepdim=True)
 
 
 def _row_dot(do, o) -> torch.Tensor:
