@@ -23,7 +23,16 @@ failure:
    loss and gradients, with the same computation through the kernels'
    plain versions on the same weights, at mfu and at a small
    configuration;
-5. print one JSON line of kernels, then, last, the device line.
+5. run ring flash attention at the mfu attention shape over sp 2 and 4
+   on this one card (the ring's ranks as threads, each on its own
+   stream), hold o, lse, dq, dk and dv against global attention through
+   the plain versions and count sp (sp + 1) / 2 launches of each kernel
+   per ring; time K1, K2 and K3 in the ring's step modes (full, f32
+   gradients) beside their bounds and SDPA; then take one training step at
+   mfu through the mesh path over NCCL at world size 1 and require it bit
+   for bit equal to the no-mesh step (what a one-card machine can show of
+   the NCCL path: the collectives between cards need several cards);
+6. print one JSON line of kernels, then, last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -124,23 +133,27 @@ def _bound(flops: float, nbytes: float, dtype: str):
                                        else "bytes")
 
 
-def bwd_bounds(hb: int, seq: int, d: int, dtype: str, causal: bool):
+def bwd_bounds(hb: int, seq: int, d: int, dtype: str, causal: bool,
+               out_dtype: str = None):
     """Least time (ms) for K2 and for K3 on the card, what bounds each, and
     their FLOPs.
 
     Operations, 2 FLOPs per multiply-add: K2 recomputes QK^T, computes
     dO V^T, P^T dO and dS^T Q (8 d per pair); K3 QK^T, dO V^T and dS K
     (6 d per pair). Bytes: q, k, v, dO read once, lse and D (f32 rows)
-    read once, and K2's dk, dv or K3's dq written once."""
+    read once, and K2's dk, dv or K3's dq written once (in `out_dtype`,
+    default `dtype`)."""
     itemsize = 2 if dtype == "bfloat16" else 4
-    tile = hb * seq * d * itemsize
+    out_itemsize = 2 if (out_dtype or dtype) == "bfloat16" else 4
+    tile = hb * seq * d
     rows = 2 * hb * seq * 4
     pairs = hb * _pairs(seq, causal)
     out = {}
-    for name, per_pair, tiles in (("flash_bwd_dkv", 8, 6),
-                                  ("flash_bwd_dq", 6, 5)):
+    for name, per_pair, reads, writes in (("flash_bwd_dkv", 8, 4, 2),
+                                          ("flash_bwd_dq", 6, 4, 1)):
         flops = per_pair * d * pairs
-        out[name] = (*_bound(flops, tiles * tile + rows, dtype), flops)
+        nbytes = tile * (reads * itemsize + writes * out_itemsize) + rows
+        out[name] = (*_bound(flops, nbytes, dtype), flops)
     return out
 
 
@@ -430,6 +443,201 @@ def compare_forwards(torch, fa, cfg, dev) -> dict:
                 plain_vs_einsum_argmax_agreement=agree(plain, einsum))
 
 
+# Ring on one card: the allowance for the one bf16 rounding of each step's
+# output before the merge. The ring merges o_b rounded to bf16 (at most
+# 2^-9 of each |o_b| element, whose weights in the merge sum to 1), and K1
+# in each step rounds P to bf16 against that step's running max where the
+# global plain version rounds it against its own (2^-9 of each P on each
+# side): at most 3 x 2^-9 x (P|V|)[r, c] = sum_i P[r, i] |V[i, c]| in all,
+# held to 2^-7 x P|V|, beside the element bar and K1's term.
+RING_MERGE_RTOL = 2 ** -7
+RING_SHAPE = (128, 2048, 128)    # hb (batch 8 x 16 heads), global seq, d
+RING_SIZES = (2, 4)
+
+
+def check_ring(torch, fa, dev):
+    """The ring on one card: the port's `ring_flash_forward` and
+    `ring_flash_backward` at the mfu attention shape, sp threads of one
+    process on their own streams (`ring_attention.run_on_threads`), against
+    global attention through the plain versions. Plain functions, not
+    autograd: the autograd engine runs every CUDA backward on one thread
+    per device, where sp ring members would wait for each other forever.
+    Returns {sp: launches} of each ring and its check lines."""
+    from tpu_device_plugin_torch.validator import ring_attention as ra
+    hb, seq, d = RING_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(dev).manual_seed(2)
+    q, k, v, do = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, scale, True, True)
+    # K1's term, and P|V| for the merge's allowance (f32: exp(s - lse) |V|)
+    term_o = (fa.rounding_terms_fwd(q, k, v, ref_lse, scale, True)
+              + RING_MERGE_RTOL / FLIP_RTOL * fa.flash_attention_plain(
+                  q.float(), k.float(), v.float().abs(), scale, True))
+    launches, lines = {}, []
+    for sp in RING_SIZES:
+        shards = [t.chunk(sp, 1) for t in (q, k, v, do)]
+
+        def member(ring):
+            qi, ki, vi, doi = (s[ring.index].contiguous() for s in shards)
+            o, lse = ra.ring_flash_forward(qi, ki, vi, scale, ring)
+            return (o, lse, *ra.ring_flash_backward(qi, ki, vi, o, lse, doi,
+                                                    scale, ring))
+
+        _reset(fa)
+        outs = ra.run_on_threads(sp, member, device=dev)
+        torch.cuda.synchronize()
+        launches[sp] = dict(fa.launches)
+        # rank r runs r + 1 steps: sp (sp + 1) / 2 of each kernel in all
+        expected = dict.fromkeys(fa.launches, sp * (sp + 1) // 2)
+        o, lse, dq, dk, dv = (torch.cat([x[j] for x in outs], 1)
+                              for j in range(5))
+        torch.cuda.synchronize()   # before the members' tensors are freed
+        del outs
+        err = {"o": _elem_err(o, ref_o, "bfloat16", term_o)}
+        err_lse = (lse - ref_lse).abs().max().item()
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, True,
+                                            out_dtype=torch.float32)
+        di = (do.float() * o.float()).sum(-1)
+        terms = (fa.rounding_terms_dq(q, k, v, do, lse, di, scale, True),
+                 *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, True))
+        for name, g, ref, term in zip(("dq", "dk", "dv"), (dq, dk, dv), refs,
+                                      terms):
+            err[name] = _elem_err(g, ref, "bfloat16", term)
+        del refs, terms, di
+        torch.cuda.empty_cache()
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv))
+        ok = (finite and err_lse <= LSE_TOL and launches[sp] == expected
+              and all(e["tol_ratio"] <= 1.0 for e in err.values()))
+        line = dict(check="ring on one card: ring_flash_forward/backward vs "
+                    "global plain attention", sp=sp, hb=hb, seq=seq,
+                    s_local=seq // sp, d=d, dtype="bfloat16",
+                    tol_ratio={n: e["tol_ratio"] for n, e in err.items()},
+                    max_abs_err={n: e["max_abs_err"] for n, e in err.items()},
+                    lse_max_abs_err=err_lse, launches=launches[sp],
+                    expected_launches=expected, merge_rtol=RING_MERGE_RTOL,
+                    ok=ok)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        if not ok:
+            raise AssertionError(f"ring on one card (sp {sp}) failed: {line}")
+    return launches, lines
+
+
+def time_ring_modes(torch, fa, dev):
+    """Each kernel in its ring-step modes at s_local 512 and 1024 (the mfu
+    shape over sp 4 and 2): K1 full with lse, K2 and K3 full with f32
+    outputs, and the causal diagonal step beside them; each with its bound
+    and SDPA's time at the same shape and mask (`library_ms`)."""
+    import torch.nn.functional as F
+    hb, _, d = RING_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(dev).manual_seed(3)
+    modes = {name: [] for name in fa.launches}
+    for s_local in (512, 1024):
+        q, k, v, do = (torch.randn((hb, s_local, d), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        b = 8
+        q4, k4, v4 = (t.view(b, hb // b, s_local, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        do4 = do.view(b, hb // b, s_local, d)
+        for causal in (False, True):
+            o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+            di = (do.float() * o.float()).sum(-1)
+            dq, dk, dv = (torch.empty(q.shape, dtype=torch.float32,
+                                      device=dev) for _ in range(3))
+            ms = {
+                "flash_fwd": _cuda_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, scale, causal, True), 20),
+                "flash_bwd_dkv": _cuda_ms(torch, lambda: fa.launch_bwd(
+                    q, k, v, do, lse, di, None, dk, dv, scale, causal), 20),
+                "flash_bwd_dq": _cuda_ms(torch, lambda: fa.launch_bwd(
+                    q, k, v, do, lse, di, dq, None, None, scale, causal), 20)}
+            lib_fwd = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), 20)
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            lib_bwd = _cuda_ms(torch, lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), 20)
+            del out4
+            bounds = bwd_bounds(hb, s_local, d, "bfloat16", causal, "float32")
+            bounds["flash_fwd"] = attention_bound(hb, s_local, d, "bfloat16",
+                                                  causal)
+            for name, t in ms.items():
+                bound_ms, bound_by, flops = bounds[name]
+                row = dict(s_local=s_local, causal=causal,
+                           out_dtype=("bfloat16" if name == "flash_fwd"
+                                      else "float32"),
+                           ms=t, bound_ms=bound_ms, bound_by=bound_by,
+                           **_speed(t, bound_ms, flops),
+                           library_ms=lib_fwd if name == "flash_fwd"
+                           else lib_bwd)
+                modes[name].append(row)
+                print(json.dumps(dict(kernel=name, ring_mode=True, **row)),
+                      flush=True)
+        del q, k, v, do, q4, k4, v4, do4
+        torch.cuda.empty_cache()
+    return modes
+
+
+def check_mesh_nccl(torch, fa, cfg, dev):
+    """The mesh path over NCCL at world size 1: one training step through
+    `build_workload(cfg, mesh)` on `slice_mesh(1)` (dp = sp = tp = 1, every
+    collective the identity) against one through the no-mesh build, same
+    seed. The losses and every updated leaf and momentum must be bit for
+    bit equal. Returns the check line and the mesh step's launches."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from tpu_device_plugin_torch.validator import workload
+    from tpu_device_plugin_torch.validator.mesh import mesh_shape, slice_mesh
+
+    step, params, momentum, tokens = workload.build_workload(
+        cfg, seed=0, device=dev)
+    _, _, ref_loss = step(params, momentum, tokens)
+    ref = [t.clone() for t in workload._leaves(params)
+           + workload._leaves(momentum)]
+    del step, params, momentum, tokens
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = slice_mesh(1, device_type="cuda")
+        step, params, momentum, tokens = workload.build_workload(
+            cfg, mesh, seed=0, device=dev)
+        _reset(fa)
+        _, _, loss = step(params, momentum, tokens)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        got = workload._leaves(params) + workload._leaves(momentum)
+        names = [f"params.{n}" for n, _ in workload._named_leaves(params)]
+        names += [f"momentum.{n}" for n, _ in workload._named_leaves(momentum)]
+        unequal = [n for n, a, b in zip(names, got, ref) if not torch.equal(a, b)]
+        shape = mesh_shape(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    expected = dict.fromkeys(fa.launches, cfg.n_layers)
+    ok = (bool(torch.equal(loss, ref_loss)) and not unequal
+          and launches == expected)
+    line = dict(check="mesh path over NCCL, world size 1, vs the no-mesh "
+                "step: bit for bit", mesh=shape, backend="nccl",
+                loss=loss.item(), no_mesh_loss=ref_loss.item(),
+                leaves_compared=len(names), unequal_leaves=unequal,
+                launches=launches, ok=ok)
+    del params, momentum, got, ref
+    torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
+    if not ok:
+        raise AssertionError(f"the NCCL mesh step differs from the no-mesh "
+                             f"step: {line}")
+    return line, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -523,10 +731,25 @@ def main() -> int:
             raise AssertionError(f"{label}: the training step through the "
                                  "kernels disagrees with the plain versions")
 
-    # 5. results
+    # 5. the ring on one card (sp threads, each rank's launches counted
+    # from 0), the kernels in its step modes, and the mesh path over NCCL
+    ring_launches, _ = check_ring(torch, fa, dev)
+    torch.cuda.empty_cache()
+    modes = time_ring_modes(torch, fa, dev)
+    _, mesh_launches = check_mesh_nccl(torch, fa, cfg, dev)
+    for entry in entries:
+        kernel = entry["name"]
+        for sp, counts in ring_launches.items():
+            entry["launches_by_path"][f"ring_sp{sp}"] = counts[kernel]
+        entry["launches_by_path"]["mesh_nccl_train"] = mesh_launches[kernel]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        entry["ring_modes"] = modes[kernel]
+
+    # 6. results
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

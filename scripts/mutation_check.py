@@ -6,8 +6,8 @@
 Run from the repository root on a machine with a CUDA card. For each
 mutation below it copies tpu_device_plugin_torch/ into a fresh directory
 (under --out, default a temporary one), changes one line of one kernel
-source there, and runs chip_smoke's phase-3 check of that kernel against
-the copy (which builds its own libraries). A mutation is caught when the
+source (or of the ring) there, and runs chip_smoke's check of that kernel
+(or its ring phase) against the copy (which builds its own libraries). A mutation is caught when the
 check raises; the script prints, per mutation, the check line that failed
 (tol_ratio, max_rel_err), and exits non-zero if any mutation passed.
 
@@ -49,6 +49,11 @@ MUTATIONS = [
      "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK;",
      "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK - (causal && q0 > 0);",
      "check_flash_bwd"),
+    ("the ring treats past blocks as causal",
+     "tpu_device_plugin_torch/validator/ring_attention.py",
+     "    return src == index",
+     "    return True",
+     "check_ring"),
 ]
 
 # (name, source, line as it is, line as changed, chip_smoke check)

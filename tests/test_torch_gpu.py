@@ -200,3 +200,55 @@ def test_training_step_goes_through_the_kernels(cuda_device, remat):
     assert abs(loss.item() - ref_loss.item()) < 1e-3
     for g, r in zip(workload._leaves(grads), workload._leaves(ref)):
         assert rel_err(g.cpu(), r) <= 0.03
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sp", [2, 3, 4])
+def test_thread_ring_flash_matches_global_plain(cuda_device, dtype, d, sp):
+    """Ring flash on one card, its ranks as threads on their own streams,
+    against global attention through the plain versions; s_local 50 is no
+    multiple of the kernels' tiles. o is allowed, beside the element bar,
+    2^-7 x (P|V|) for the bf16 rounding of each step's output and of P in
+    other blocks (as chip_smoke.py's ring phase); the gradients are held
+    against the plain backward from the ring's own o and lse."""
+    from tpu_device_plugin_torch.validator import ring_attention as ra
+    s_local = 50
+    q, k, v, do = inputs(2, sp * s_local, d, dtype, cuda_device,
+                         seed=sp * d, n=4)
+    scale = d ** -0.5
+    shards = [t.chunk(sp, 1) for t in (q, k, v, do)]
+
+    def member(ring):
+        qi, ki, vi, doi = (s[ring.index].contiguous() for s in shards)
+        o, lse = ra.ring_flash_forward(qi, ki, vi, scale, ring)
+        return (o, lse, *ra.ring_flash_backward(qi, ki, vi, o, lse, doi,
+                                                scale, ring))
+
+    before = dict(fa.launches)
+    outs = ra.run_on_threads(sp, member, device=cuda_device, timeout_s=120)
+    torch.cuda.synchronize()
+    for name in fa.launches:
+        assert fa.launches[name] == before[name] + sp * (sp + 1) // 2, name
+    o, lse, dq, dk, dv = (torch.cat([x[j] for x in outs], 1)
+                          for j in range(5))
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, scale, True, True)
+    term = None
+    if dtype == "bfloat16":
+        term = (fa.rounding_terms_fwd(q, k, v, ref_lse, scale, True)
+                + fa.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), scale, True))
+    assert torch.isfinite(o).all() and o.dtype == q.dtype
+    assert grad_close(o, ref_o, dtype, term)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, True,
+                                        out_dtype=torch.float32)
+    di = (do.float() * o.float()).sum(-1)
+    terms = ((fa.rounding_terms_dq(q, k, v, do, lse, di, scale, True),
+              *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, True))
+             if dtype == "bfloat16" else (None, None, None))
+    for name, g, ref, t in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, terms):
+        assert g.dtype == q.dtype and torch.isfinite(g).all(), name
+        assert grad_close(g, ref, dtype, t), name

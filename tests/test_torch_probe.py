@@ -6,6 +6,7 @@ run is chip_smoke.py.
 
 import ast
 import json
+import re
 from pathlib import Path
 
 import pytest
@@ -81,8 +82,8 @@ def test_training_that_does_not_learn_fails(monkeypatch):
     from tpu_device_plugin_torch.validator import workload
     real = workload.sgd_step
 
-    def frozen(params, momentum, tokens, cfg, attention="einsum"):
-        _, _, loss = real(params, momentum, tokens, cfg, attention)
+    def frozen(params, momentum, tokens, cfg, attention="einsum", mesh=None):
+        _, _, loss = real(params, momentum, tokens, cfg, attention, mesh)
         return params, momentum, loss * 0 + 7.0
     monkeypatch.setattr(workload, "sgd_step", frozen)
     monkeypatch.setattr(probe, "_microbench", lambda dev, m=None: (1.0, 1.0))
@@ -161,13 +162,12 @@ def test_workload_flops_at_mfu():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "infer", "--sp", "2"], "item 3"),
+    (["--mode", "infer", "--ep", "2"], "item 5"),
     (["--mode", "attn-bench"], "item 7"),
     (["--mode", "ring-bench"], "item 7"),
-    (["--tp", "2"], "item 3"),
-    (["--sp", "2"], "item 3"),
-    (["--pp", "2"], "item 3"),
-    (["--ep", "2"], "item 3"),
+    (["--pp", "2"], "item 5"),
+    (["--ep", "2"], "item 5"),
+    (["--tp", "2", "--pp", "2"], "item 5"),
 ])
 def test_main_rejects_unported_with_exit_2(argv, match, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -175,6 +175,76 @@ def test_main_rejects_unported_with_exit_2(argv, match, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and match in err
+
+
+# test_validator.py's SMALL configuration
+SMALL = ModelConfig(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=1,
+                    seq_len=16, batch=4)
+
+
+def test_validate_slice_over_four_processes(monkeypatch):
+    """A (dp 2, tp 2) mesh of 4 gloo processes: the loss falls, and the
+    model TFLOP/s are shared over the 4 devices, as the JAX probe shares
+    them."""
+    report = probe.validate_slice(cfg=SMALL, steps=3, tp=2, device="cpu",
+                                  n_devices=4)
+    assert report.ok, report.error
+    assert report.n_devices == 4 and report.platform == "cpu"
+    assert report.mesh_shape == {"dp": 2, "sp": 1, "tp": 2}
+    assert report.loss_end < report.loss_start
+    assert report.steps == 1 + 3 + 6
+    assert report.first_step_s > report.devices_visible_s > 0
+    assert report.tflops_per_chip == pytest.approx(
+        probe._workload_flops(SMALL) / report.step_time_s / 1e12 / 4)
+    assert report.matmul_tflops > 0   # rank 0's microbench
+
+
+def test_validate_slice_infer_over_a_ring():
+    report = probe.validate_slice(cfg=SMALL, steps=2, sp=2, tp=1,
+                                  mode="infer", device="cpu", n_devices=4)
+    assert report.ok, report.error
+    assert report.mesh_shape == {"dp": 2, "sp": 2, "tp": 1}
+    assert report.forwards > 3 and report.steps == 0
+    assert report.tokens_per_s == pytest.approx(
+        SMALL.batch * SMALL.seq_len / report.step_time_s)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(tp=2), "1 devices not divisible by tp=2"),
+    (dict(sp=3, n_devices=4), "4 devices not divisible by tp=4 \\* sp=3"),
+])
+def test_indivisible_mesh_is_reported(kw, match):
+    """As the JAX probe: the ValueError lands in `error`, not ok, and is
+    not a configuration error (exit code 1)."""
+    report = probe.validate_slice(cfg=SMALL, steps=1, device="cpu", **kw)
+    assert not report.ok and not report.invalid_config
+    assert report.error.startswith("ValueError")
+    assert re.search(match, report.error)
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["--tp", "1", "--sp", "1"], 0),
+    (["--tp", "2"], 1),
+    (["--sp", "2", "--attention", "ring", "--mode", "infer"], 1),
+])
+def test_main_takes_tp_and_sp(argv, rc, capsys):
+    assert probe.main(argv + ["--device", "cpu", "--steps", "1",
+                              "--seq-len", "16"]) == rc
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["ok"] is (rc == 0)
+    if rc:
+        assert "not divisible" in report["error"]
+
+
+def test_dryrun_multichip_eight_processes(capsys):
+    from tpu_device_plugin_torch.entry import dryrun_multichip
+    dryrun_multichip(8)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith(
+        "dryrun_multichip: mesh={'dp': 1, 'sp': 2, 'tp': 4} loss=")
+    loss = float(lines[0].rsplit("=", 1)[1])
+    assert 0 < loss < 10
+    assert "not yet ported" in lines[1] and "items 5 and 6" in lines[1]
 
 
 def test_main_exit_code_one_without_cuda(monkeypatch, capsys):

@@ -141,14 +141,15 @@ def test_rms_norm_and_mlp_match_jax():
 
 
 def test_resolve_modes():
-    assert tw._resolve(None, None, "cpu")[2] == "einsum"
-    assert tw._resolve(None, "flash", "cpu")[2] == "flash"
+    assert tw._resolve(None, None, None, "cpu")[2] == "einsum"
+    assert tw._resolve(None, None, "flash", "cpu")[2] == "flash"
     with pytest.raises(ValueError, match="unknown attention mode"):
-        tw._resolve(None, "sparse", "cpu")
-    fwd, params, tokens = tw.build_infer(tw.ModelConfig(**SMALL),
-                                         attention="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fwd(params, tokens)
+        tw._resolve(None, None, "sparse", "cpu")
+    # ring without a mesh is a ring of one: the own block, causal
+    cfg = tw.ModelConfig(**SMALL)
+    fwd, params, tokens = tw.build_infer(cfg, attention="ring", device="cpu")
+    einsum = tw.forward(params, tokens, cfg, "einsum")
+    assert (fwd(params, tokens) - einsum).abs().max() <= 0.02 * einsum.abs().max()
 
 
 def test_moe_forward_is_refused():

@@ -11,8 +11,10 @@ backward). Run it in the guest:
 
 It reports the training step time, TFLOP/s and MFU (or, with
 `--mode infer`, the serving latency percentiles and tokens/s) and the
-card's matmul and memory microbench against its datasheet peak. The mesh
-and the benches are ported in later slices (ROADMAP.md, Queue 1).
+card's matmul and memory microbench against its datasheet peak. With
+several cards it runs a (dp, sp, tp) mesh, one process per card, with ring
+attention over sp (`--tp`, `--sp`). MoE, the pp/ep axes, GPipe and the
+benches are ported in later slices (ROADMAP.md, Queue 1).
 """
 
 from .workload import ModelConfig, build_infer, build_workload  # noqa: F401

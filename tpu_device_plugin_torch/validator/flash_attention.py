@@ -27,6 +27,7 @@ tiles are their own compile-time constants, so they are not arguments.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -41,8 +42,15 @@ KEY_BLOCK = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # CUDA kernel launches per kernel since import (or since the caller last
-# reset them); a run reads them to show it went through the kernels
+# reset them); a run reads them to show it went through the kernels.
+# Counted under a lock: the one-device ring launches from several threads.
 launches = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _reference_attention(q, k, v, sm_scale: float, causal: bool):
@@ -189,10 +197,12 @@ def _row_dot(do, o) -> torch.Tensor:
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float,
-                              causal: bool, out_dtype=None):
+                              causal: bool, out_dtype=None, di=None):
     """The backward in plain PyTorch: (dq, dk, dv) in `out_dtype`
-    (default: the inputs' dtype), computed in f32."""
-    di = _row_dot(do, o)
+    (default: the inputs' dtype), computed in f32. D = rowsum(dO * O) is
+    `di` where given (then `o` is not read), else taken from `o`."""
+    if di is None:
+        di = _row_dot(do, o)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale, causal)
     dq = flash_bwd_dq_plain(q, k, v, do, lse, di, sm_scale, causal)
     out_dtype = out_dtype or q.dtype
@@ -261,7 +271,7 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool,
                  float(sm_scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return (o, lse) if return_lse else o
 
 
@@ -300,20 +310,23 @@ def launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale: float,
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     if dk is not None:
-        launches["flash_bwd_dkv"] += 1
+        _count("flash_bwd_dkv")
     if dq is not None:
-        launches["flash_bwd_dq"] += 1
+        _count("flash_bwd_dq")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, causal: bool,
-                        out_dtype=None):
+                        out_dtype=None, di=None):
     """(dq, dk, dv) of attention with upstream gradient `do`, in
     `out_dtype` (default: q's dtype). `flash_attention_bwd_plain` on a CPU
-    tensor; K2 and K3 on a CUDA tensor, or raises."""
+    tensor; K2 and K3 on a CUDA tensor, or raises. D = rowsum(dO * O) is
+    `di` where given (ring attention passes the global one; `o` is then
+    not read), else taken from `o`."""
     if not _on_kernel_device(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale,
-                                         causal, out_dtype)
-    di = _row_dot(do, o)
+                                         causal, out_dtype, di)
+    if di is None:
+        di = _row_dot(do, o)
     dq, dk, dv = (torch.empty(q.shape, dtype=out_dtype or q.dtype,
                               device=q.device) for _ in range(3))
     launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale, causal)

@@ -1,13 +1,15 @@
 """Slice validation probe on an NVIDIA card: training and serving.
 
-Port of `tpu_device_plugin/validator/probe.py` for one card: process start
-→ CUDA device enumerated → first step done, then either training
-(`--mode train`, the default: SGD steps, differenced step time, model
-TFLOP/s and MFU, loss must fall) or serving (`--mode infer`: latency
-percentiles, tokens/s), and a matmul/memory microbench checked against the
-card's datasheet peak. Exit code is non-zero when the card is unusable, so
-a VMI startup probe can gate workload admission on it. The mesh, GPipe and
-the benches are later slices (ROADMAP.md, Queue 1).
+Port of `tpu_device_plugin/validator/probe.py`: process start → CUDA
+device enumerated → first step done, then either training (`--mode train`,
+the default: SGD steps, differenced step time, model TFLOP/s and MFU, loss
+must fall) or serving (`--mode infer`: latency percentiles, tokens/s), and
+a matmul/memory microbench checked against the card's datasheet peak. With
+more than one device (every visible card by default) the step runs on a
+(dp, sp, tp) mesh, one process per card (`--tp`, `--sp`). Exit code is
+non-zero when the slice is unusable, so a VMI startup probe can gate
+workload admission on it. MoE with the pp/ep axes, GPipe and the benches
+are later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -134,10 +136,24 @@ def _microbench(device: torch.device, min_diff_s: Optional[float] = None):
     return tflops, gbps
 
 
+# Seconds a validation over several devices may take, start-up included,
+# before its processes are killed and the run reported as failed.
+MESH_TIMEOUT_S = 900.0
+
+
 def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
-                   mode: str = "train", device=None) -> SliceReport:
-    """Validation of one card (`device`, CUDA by default): training steps
-    (`mode="train"`) or serving forwards (`mode="infer"`)."""
+                   mode: str = "train", device=None, tp: Optional[int] = None,
+                   sp: Optional[int] = None,
+                   n_devices: Optional[int] = None) -> SliceReport:
+    """Validation of a slice: training steps (`mode="train"`) or serving
+    forwards (`mode="infer"`) on `device` (CUDA by default).
+
+    `n_devices` (every visible card on CUDA, 1 on the CPU, by default) is
+    factored into a (dp, sp, tp) mesh by `mesh.infer_mesh_shape(n_devices,
+    tp, sp)`; a shape that does not divide lands in `error`. With one
+    device there is no mesh. With more, one process per device runs the
+    mesh (gloo processes on the CPU): rank 0 fills the report, `ok` is
+    every rank's verdict ANDed, and the microbench runs on rank 0's card."""
     report = SliceReport(ok=False)
     if mode not in ("train", "infer"):
         report.invalid_config = True
@@ -145,74 +161,127 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                         "Queue 1); 'train' and 'infer' run")
         return report
     try:
+        from .mesh import infer_mesh_shape
         from .workload import ModelConfig, resolve_device
         dev = resolve_device(device)
         report.devices_visible_s = time.monotonic() - _PROCESS_START
+        if n_devices is None:
+            n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+        report.n_devices = n_devices
         if dev.type == "cuda":
             report.platform = "gpu"
-            report.n_devices = torch.cuda.device_count()
-            report.device_kinds = [torch.cuda.get_device_name(dev)]
+            ids = [dev.index] if n_devices == 1 else range(n_devices)
+            report.device_kinds = sorted({torch.cuda.get_device_name(i)
+                                          for i in ids})
         else:
             report.platform = dev.type
-            report.n_devices = 1
             report.device_kinds = [dev.type]
+        dp, sp_, tp_ = infer_mesh_shape(n_devices, tp, sp)
         cfg = cfg or ModelConfig()
         steps = max(steps, 1)
-        if mode == "infer":
-            _serve(report, cfg, steps, attention, dev)
-        else:
-            _train(report, cfg, steps, attention, dev)
-
-        # Microbench + physics check after the verdict. A card slower than
-        # peak is diagnostic-only; a card MEASURING FASTER than its
-        # datasheet peak is a broken estimator and vetoes the run.
-        try:
-            report.matmul_tflops, report.hbm_gbps = _microbench(dev)
-            from . import peaks
-            kind = report.device_kinds[0]
-            peak, suspect, why = peaks.check(
-                kind, report.matmul_tflops, report.hbm_gbps)
-            if suspect:
-                # one retry at a 4x-taller noise floor; a retry that itself
-                # fails keeps the suspect verdict
-                try:
-                    report.matmul_tflops, report.hbm_gbps = _microbench(
-                        dev, MICROBENCH_MIN_DIFF_S * 4)
-                    peak, suspect, why = peaks.check(
-                        kind, report.matmul_tflops, report.hbm_gbps)
-                except Exception as exc:
-                    why += (f" (retry failed: {type(exc).__name__}: {exc}; "
-                            "keeping suspect verdict)")
-            if peak is not None:
-                report.peak_tflops = peak.bf16_tflops
-                report.peak_hbm_gbps = peak.hbm_gbps
-                report.microbench_mfu = report.matmul_tflops / peak.bf16_tflops
-                report.hbm_frac = report.hbm_gbps / peak.hbm_gbps
-                if report.tflops_per_chip:
-                    report.mfu = report.tflops_per_chip / peak.bf16_tflops
-                    if report.mfu > peaks.SUSPECT_FACTOR:
-                        suspect = True
-                        why = (f"train MFU {report.mfu:.2f} > "
-                               f"{peaks.SUSPECT_FACTOR:g} is impossible; " + why)
-            if suspect:
-                report.perf_suspect = True
-                report.ok = False
-                report.error = (report.error + "; " if report.error else "") \
-                    + f"perf measurement exceeds datasheet peak: {why}"
-        except Exception as exc:
-            if not report.error:
-                report.error = f"microbench skipped: {type(exc).__name__}: {exc}"
+        if n_devices > 1:
+            from .distributed import spawn
+            report.mesh_shape = {"dp": dp, "sp": sp_, "tp": tp_}
+            ranks = spawn(_validate_rank, n_devices, dev.type, MESH_TIMEOUT_S,
+                          args=(cfg, steps, attention, mode, _PROCESS_START),
+                          mesh=dict(tp=tp_, sp=sp_))
+            kept = ("platform", "n_devices", "device_kinds", "mesh_shape",
+                    "devices_visible_s")
+            for key, value in ranks[0].items():
+                if key not in kept:
+                    setattr(report, key, value)
+            return report
+        _run(report, cfg, steps, attention, mode, dev)
+        _check_card(report, dev)
     except Exception as exc:  # report, don't crash the probe harness
         report.error = f"{type(exc).__name__}: {exc}"
     return report
 
 
-def _serve(report: SliceReport, cfg, steps: int, attention, dev) -> None:
+def _run(report: SliceReport, cfg, steps: int, attention, mode: str, dev,
+         mesh=None) -> None:
+    if mode == "infer":
+        _serve(report, cfg, steps, attention, dev, mesh)
+    else:
+        _train(report, cfg, steps, attention, dev, mesh)
+
+
+def _validate_rank(rank: int, mesh, cfg, steps: int, attention, mode: str,
+                   process_start: float) -> Optional[dict]:
+    """One rank of a validation over a mesh (run by `distributed.spawn`):
+    its part of the steps or forwards, then the verdict ANDed over every
+    rank; rank 0 also runs the microbench and returns its report."""
+    import torch.distributed as dist
+    global _PROCESS_START
+    _PROCESS_START = process_start   # the caller's process start
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    report = SliceReport(ok=False, n_devices=dist.get_world_size())
+    _run(report, cfg, steps, attention, mode, dev, mesh)
+    verdict = torch.tensor([int(report.ok)], device=dev)
+    dist.all_reduce(verdict, op=dist.ReduceOp.MIN)
+    if report.ok and not verdict.item():
+        report.ok = False
+        report.error = "another rank's verdict failed"
+    if rank != 0:
+        return None
+    _check_card(report, dev)
+    return dict(report.__dict__)
+
+
+def _check_card(report: SliceReport, dev) -> None:
+    """Microbench + physics check after the verdict. A card slower than
+    peak is diagnostic-only; a card MEASURING FASTER than its datasheet
+    peak is a broken estimator and vetoes the run."""
+    try:
+        report.matmul_tflops, report.hbm_gbps = _microbench(dev)
+        from . import peaks
+        kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else dev.type)
+        peak, suspect, why = peaks.check(
+            kind, report.matmul_tflops, report.hbm_gbps)
+        if suspect:
+            # one retry at a 4x-taller noise floor; a retry that itself
+            # fails keeps the suspect verdict
+            try:
+                report.matmul_tflops, report.hbm_gbps = _microbench(
+                    dev, MICROBENCH_MIN_DIFF_S * 4)
+                peak, suspect, why = peaks.check(
+                    kind, report.matmul_tflops, report.hbm_gbps)
+            except Exception as exc:
+                why += (f" (retry failed: {type(exc).__name__}: {exc}; "
+                        "keeping suspect verdict)")
+        if peak is not None:
+            report.peak_tflops = peak.bf16_tflops
+            report.peak_hbm_gbps = peak.hbm_gbps
+            report.microbench_mfu = report.matmul_tflops / peak.bf16_tflops
+            report.hbm_frac = report.hbm_gbps / peak.hbm_gbps
+            if report.tflops_per_chip:
+                report.mfu = report.tflops_per_chip / peak.bf16_tflops
+                if report.mfu > peaks.SUSPECT_FACTOR:
+                    suspect = True
+                    why = (f"train MFU {report.mfu:.2f} > "
+                           f"{peaks.SUSPECT_FACTOR:g} is impossible; " + why)
+        if suspect:
+            report.perf_suspect = True
+            report.ok = False
+            report.error = (report.error + "; " if report.error else "") \
+                + f"perf measurement exceeds datasheet peak: {why}"
+    except Exception as exc:
+        if not report.error:
+            report.error = f"microbench skipped: {type(exc).__name__}: {exc}"
+
+
+def _serve(report: SliceReport, cfg, steps: int, attention, dev,
+           mesh=None) -> None:
     """Serving path: first forward, latency percentiles, differenced
-    per-forward time, tokens/s; ok iff the logits are finite."""
+    per-forward time, tokens/s; ok iff the logits are finite. On a mesh,
+    each rank forwards its (dp, sp) block and tokens/s counts the whole
+    batch."""
     from .timing import paired_time
     from .workload import build_infer
-    fwd, params, tokens = build_infer(cfg, attention=attention, device=dev)
+    fwd, params, tokens = build_infer(cfg, mesh, attention=attention,
+                                      device=dev)
 
     def run(tok):
         report.forwards += 1
@@ -249,12 +318,15 @@ def _serve(report: SliceReport, cfg, steps: int, attention, dev) -> None:
         report.error = "non-finite logits in serving forward"
 
 
-def _train(report: SliceReport, cfg, steps: int, attention, dev) -> None:
+def _train(report: SliceReport, cfg, steps: int, attention, dev,
+           mesh=None) -> None:
     """Training path: the first step gives `loss_start`; blocks of N and 2N
     steps, each synced by fetching the loss, give the differenced step time
-    (the fixed per-fetch cost cancels); ok iff the loss fell."""
+    (the fixed per-fetch cost cancels); ok iff the loss fell. The model
+    TFLOP/s are divided over the report's `n_devices`."""
     from .workload import build_workload
-    step, params, momentum, tokens = build_workload(cfg, attention=attention,
+    step, params, momentum, tokens = build_workload(cfg, mesh,
+                                                    attention=attention,
                                                     device=dev)
 
     def run_step():
@@ -279,8 +351,8 @@ def _train(report: SliceReport, cfg, steps: int, attention, dev) -> None:
     diff = t_2n - t_n
     report.step_time_s = diff / steps if diff > 0 else t_2n / (2 * steps)
     if report.step_time_s > 0:
-        # the step runs on one card
-        report.tflops_per_chip = _workload_flops(cfg) / report.step_time_s / 1e12
+        report.tflops_per_chip = (_workload_flops(cfg) / report.step_time_s
+                                  / 1e12 / max(report.n_devices, 1))
     # a card that cannot learn is broken even if it computes
     report.ok = report.loss_end < report.loss_start
     if not report.ok:
@@ -306,7 +378,7 @@ _NOT_PORTED_MODES = {
     "attn-bench": "Queue 1, item 7 (benches)",
     "ring-bench": "Queue 1, item 7 (benches)",
 }
-_MESH_FLAGS = ("tp", "sp", "pp", "ep")
+_NOT_PORTED_AXES = ("pp", "ep")
 
 
 def main(argv=None) -> int:
@@ -330,22 +402,29 @@ def main(argv=None) -> int:
     parser.add_argument("--remat", action="store_true",
                         help="recompute each layer in the backward instead "
                              "of keeping its activations")
-    parser.add_argument("--attention", choices=["auto", "flash", "einsum"],
+    parser.add_argument("--attention",
+                        choices=["auto", "flash", "ring", "einsum"],
                         default="auto",
-                        help="auto = the CUDA flash kernel on the card, "
-                             "einsum on the CPU")
+                        help="auto = ring when sp > 1, else the CUDA flash "
+                             "kernels on the card and einsum on the CPU")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    for flag in _MESH_FLAGS:
+    parser.add_argument("--tp", type=int, default=None,
+                        help="tensor-parallel size (heads and ffn), over "
+                             "the visible cards")
+    parser.add_argument("--sp", type=int, default=None,
+                        help="sequence-parallel size (ring attention), over "
+                             "the visible cards")
+    for flag in _NOT_PORTED_AXES:
         parser.add_argument(f"--{flag}", type=int, default=None,
                             help="mesh axis size: not ported yet")
     args = parser.parse_args(argv)
     if args.mode in _NOT_PORTED_MODES:
         parser.error(f"--mode {args.mode} is not yet ported "
                      f"(ROADMAP.md, {_NOT_PORTED_MODES[args.mode]})")
-    for flag in _MESH_FLAGS:
+    for flag in _NOT_PORTED_AXES:
         if getattr(args, flag) is not None:
-            parser.error(f"--{flag}: the mesh is not yet ported "
-                         "(ROADMAP.md, Queue 1, item 3)")
+            parser.error(f"--{flag}: the pp and ep axes are not yet ported "
+                         "(ROADMAP.md, Queue 1, item 5)")
     cfg = None
     if args.preset is not None or args.seq_len is not None or args.remat:
         from .workload import ModelConfig
@@ -357,7 +436,8 @@ def main(argv=None) -> int:
         cfg = ModelConfig(**overrides)
     attention = None if args.attention == "auto" else args.attention
     report = validate_slice(cfg=cfg, steps=args.steps, attention=attention,
-                            mode=args.mode, device=args.device)
+                            mode=args.mode, device=args.device, tp=args.tp,
+                            sp=args.sp)
     print(report.to_json())
     if report.invalid_config:
         return 2  # caller error, not a broken card

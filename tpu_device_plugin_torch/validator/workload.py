@@ -1,8 +1,8 @@
 """Transformer burn-in workload in PyTorch: serving and training.
 
-Port of `tpu_device_plugin/validator/workload.py` for one CUDA device:
-embedding, RMSNorm, multi-head causal attention, GELU MLP, unembedding,
-cross-entropy, and SGD with momentum.
+Port of `tpu_device_plugin/validator/workload.py`: embedding, RMSNorm,
+multi-head causal attention, GELU MLP, unembedding, cross-entropy, and SGD
+with momentum, on one device or on a (dp, sp, tp) mesh (mesh.py).
 
 - Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`,
   stacked on a leading n_layers dim, under `embed`, `unembed` and
@@ -12,8 +12,18 @@ cross-entropy, and SGD with momentum.
   JAX forward does); RMSNorm and the logits are float32; params, grads
   and momentum are float32.
 - Attention is `flash` (the CUDA kernels in csrc/, forward and backward;
-  their plain versions on the CPU) or `einsum`. Ring attention, the mesh
-  and MoE come in later slices (ROADMAP.md, Queue 1).
+  their plain versions on the CPU), `ring` (ring_attention.py, over sp) or
+  `einsum`. MoE and the pp/ep axes come in a later slice (ROADMAP.md,
+  Queue 1, item 5).
+- On a mesh, where XLA inserted the collectives from `param_specs`, the
+  port calls them itself (distributed.py): `wq`/`wk`/`wv`/`w1` are
+  column-sharded over tp (a column block of `wq` is a block of whole
+  heads), `wo`/`w2` row-sharded and followed by a sum over tp, `embed`
+  sharded on its d columns and gathered, `unembed` row-sharded with the
+  logits summed over tp. The residual stream is replicated over tp and
+  sharded (dp, sp) like the batch. Every leaf is replicated over dp and
+  sp, so its gradient is summed over both. Without a mesh none of these
+  calls is made.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
@@ -27,6 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from .distributed import all_reduce_grads, enter, exit_, gather
+from .mesh import mesh_shape
 
 Params = Dict[str, Any]
 
@@ -114,35 +127,96 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
     return w.to(torch.bfloat16)
 
 
+class _Axes:
+    """This rank's place on a (dp, sp, tp) mesh: each axis's process
+    group, size and index."""
+
+    def __init__(self, mesh):
+        names = mesh.mesh_dim_names
+        extra = [name for name in names if name not in ("dp", "sp", "tp")]
+        if extra:
+            raise NotImplementedError(
+                f"the {'/'.join(extra)} mesh axes are not yet ported "
+                "(ROADMAP.md, Queue 1, item 5)")
+        self.group = {name: mesh.get_group(name) for name in names}
+        self.size = mesh_shape(mesh)
+        self.index = {name: mesh.get_local_rank(name) for name in names}
+
+
+def _axes(mesh) -> Optional[_Axes]:
+    return None if mesh is None else _Axes(mesh)
+
+
+def _row_sharded(x: torch.Tensor, w: torch.Tensor,
+                 ax: Optional[_Axes]) -> torch.Tensor:
+    """x @ w in bf16 for a row-sharded w: the partial products summed over
+    tp. Over tp > 1 each partial is taken in f32 (from the bf16 operands)
+    and rounded to bf16 once, after the sum, as the unsharded product is
+    rounded once; rounding each partial first moved the loss by 1.3e-3 at
+    test_torch_sharded.py's configuration. At one rank the bf16 product
+    itself is passed on."""
+    if ax is None:
+        return x @ _bf16(w)
+    if ax.size["tp"] == 1:
+        return exit_(x @ _bf16(w), ax.group["tp"])
+    partial = x.float() @ _bf16(w).float()
+    return exit_(partial, ax.group["tp"]).to(torch.bfloat16)
+
+
 def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-               attention: str = "einsum") -> torch.Tensor:
-    b, s, d = x.shape
-    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+               attention: str = "einsum",
+               ax: Optional[_Axes] = None) -> torch.Tensor:
+    b, s, _ = x.shape
+    dh = cfg.d_model // cfg.n_heads
+    h = layer["wq"].shape[-1] // dh   # this rank's heads
+    if ax is not None:
+        x = enter(x, ax.group["tp"])
     q = (x @ _bf16(layer["wq"])).reshape(b, s, h, dh)
     k = (x @ _bf16(layer["wk"])).reshape(b, s, h, dh)
     v = (x @ _bf16(layer["wv"])).reshape(b, s, h, dh)
     if attention == "ring":
-        raise NotImplementedError(
-            "ring attention is not yet ported (ROADMAP.md, Queue 1, item 4)")
-    if attention == "flash":
+        from .ring_attention import (ProcessGroupRing, ThreadRing,
+                                     ring_attention, ring_flash_attention)
+        ring = (ProcessGroupRing(ax.group["sp"]) if ax is not None
+                else ThreadRing(1).member(0))
+        # the kernels on the card, the einsum ring on CPU tensors, as the
+        # JAX workload runs ring flash on the chip and the einsum ring
+        # under interpret
+        run = ring_flash_attention if x.is_cuda else ring_attention
+        o = run(_fold_heads(q).contiguous(), _fold_heads(k).contiguous(),
+                _fold_heads(v).contiguous(), dh ** -0.5, ring)
+        out = _unfold_heads(o, b, h).reshape(b, s, h * dh)
+    elif attention == "flash":
         from .flash_attention import flash_attention
         o = flash_attention(_fold_heads(q).contiguous(),
                             _fold_heads(k).contiguous(),
                             _fold_heads(v).contiguous(), None, True)
-        out = _unfold_heads(o, b, h).reshape(b, s, d)
+        out = _unfold_heads(o, b, h).reshape(b, s, h * dh)
     else:
+        # sequence parallelism: queries stay sharded, keys and values are
+        # gathered over sp; the causal mask is global, so it is offset by
+        # this shard's first position
+        offset = 0
+        if ax is not None and ax.size["sp"] > 1:
+            k = gather(k, 1, ax.group["sp"], sum_grads=True)
+            v = gather(v, 1, ax.group["sp"], sum_grads=True)
+            offset = ax.index["sp"] * s
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (dh ** -0.5)
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        mask = torch.ones((s, k.shape[1]), dtype=torch.bool,
+                          device=x.device).tril(offset)
         scores = torch.where(mask, scores, -1e9)
         probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, d)
-    return out @ _bf16(layer["wo"])
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * dh)
+    return _row_sharded(out, layer["wo"], ax)
 
 
-def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _mlp(x: torch.Tensor, layer: Params,
+         ax: Optional[_Axes] = None) -> torch.Tensor:
+    if ax is not None:
+        x = enter(x, ax.group["tp"])
     # jax.nn.gelu defaults to the tanh approximation
     hidden = F.gelu(x @ _bf16(layer["w1"]), approximate="tanh")
-    return hidden @ _bf16(layer["w2"])
+    return _row_sharded(hidden, layer["w2"], ax)
 
 
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
@@ -152,19 +226,20 @@ def _rms_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-                attention: str) -> torch.Tensor:
+                attention: str, ax: Optional[_Axes] = None) -> torch.Tensor:
     """One transformer block (attention + MLP residuals), dense only."""
     if cfg.n_experts:
         raise NotImplementedError(
             "the MoE layer is not yet ported (ROADMAP.md, Queue 1, item 5)")
-    x = x + _attention(_rms_norm(x), layer, cfg, attention)
-    return x + _mlp(_rms_norm(x), layer)
+    x = x + _attention(_rms_norm(x), layer, cfg, attention, ax)
+    return x + _mlp(_rms_norm(x), layer, ax)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            attention: str = "einsum") -> torch.Tensor:
-    """Logits (batch, seq, vocab) in f32."""
+def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+             attention: str, ax: Optional[_Axes]) -> torch.Tensor:
     x = _bf16(params["embed"])[tokens]
+    if ax is not None:
+        x = gather(x, -1, ax.group["tp"], sum_grads=False)
     # unbind, not w[i]: its backward stacks the layers' grads once, where
     # each w[i]'s would fill and add a zero grad of the whole stack
     names = list(params["layers"])
@@ -172,21 +247,48 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     for weights in per_layer:
         layer = dict(zip(names, weights))
         if cfg.remat:
-            x = checkpoint(_layer_body, x, layer, cfg, attention,
+            x = checkpoint(_layer_body, x, layer, cfg, attention, ax,
                            use_reentrant=False)
         else:
-            x = _layer_body(x, layer, cfg, attention)
-    logits = _rms_norm(x) @ _bf16(params["unembed"])
-    return logits.float()
+            x = _layer_body(x, layer, cfg, attention, ax)
+    x = _rms_norm(x)
+    if ax is not None:
+        # unembed is row-sharded: each rank multiplies its d-slice
+        width = params["unembed"].shape[0]
+        x = enter(x, ax.group["tp"]).narrow(-1, ax.index["tp"] * width, width)
+    return _row_sharded(x, params["unembed"], ax).float()
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            attention: str = "einsum", mesh=None) -> torch.Tensor:
+    """Logits (batch, seq, vocab) in f32. On a mesh, `params` are this
+    rank's shards and `tokens` its (dp, sp) block; so are the logits."""
+    return _forward(params, tokens, cfg, attention, _axes(mesh))
+
+
+def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
+          attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+    """This rank's part of the mean next-token cross-entropy over the
+    global batch x (seq - 1) positions. `rows` are the rank's token rows,
+    whole: the last position of an sp shard predicts the first token of
+    the next; the last global position predicts nothing."""
+    seq = rows.shape[1]
+    sp, dp = (1, 1) if ax is None else (ax.size["sp"], ax.size["dp"])
+    width = seq // sp
+    start = 0 if ax is None else ax.index["sp"] * width
+    logits = _forward(params, rows[:, start:start + width], cfg, attention, ax)
+    targets = rows[:, start + 1:start + width + 1]
+    logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
+    nll = -torch.gather(logprobs, -1, targets[..., None].long())
+    return nll.sum() / (rows.shape[0] * dp * (seq - 1))
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            attention: str = "einsum") -> torch.Tensor:
-    """Mean next-token cross-entropy."""
-    logits = forward(params, tokens, cfg, attention)
-    logprobs = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(logprobs, -1, tokens[:, 1:, None].long())
-    return nll.mean()
+            attention: str = "einsum", mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy. On a mesh, `tokens` are the rank's
+    dp rows over the whole sequence, and the result is this rank's part of
+    the mean (the parts sum to it over dp and sp)."""
+    return _loss(params, tokens, cfg, attention, _axes(mesh))
 
 
 def _named_leaves(tree: Params, prefix: str = ""
@@ -216,25 +318,33 @@ def _with_leaves(tree: Params, leaves) -> Params:
 
 
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                   attention: str = "einsum") -> Tuple[torch.Tensor, Params]:
+                   attention: str = "einsum", mesh=None
+                   ) -> Tuple[torch.Tensor, Params]:
     """(loss, grads) with grads a tree of params' structure; the caller's
-    params are not marked as requiring grad."""
+    params are not marked as requiring grad. On a mesh the loss and the
+    grads are summed over dp and sp: every rank gets the global loss and
+    the gradient of its shards."""
+    ax = _axes(mesh)
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(_with_leaves(params, leaves), tokens, cfg, attention)
+        loss = _loss(_with_leaves(params, leaves), tokens, cfg, attention, ax)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _with_leaves(params, grads)
+    loss = loss.detach()
+    if ax is not None:
+        groups = (ax.group["dp"], ax.group["sp"])
+        loss, *grads = all_reduce_grads([loss, *grads], groups)
+    return loss, _with_leaves(params, grads)
 
 
 def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
-             cfg: ModelConfig, attention: str = "einsum"
+             cfg: ModelConfig, attention: str = "einsum", mesh=None
              ) -> Tuple[Params, Params, torch.Tensor]:
     """One training step: loss, grads, SGD with momentum.
 
     m <- momentum * m + g, p <- p - lr * m. params and momentum are updated
     in place (the JAX version donates them) and returned with the loss,
     which is the loss before the update."""
-    loss, grads = value_and_grad(params, tokens, cfg, attention)
+    loss, grads = value_and_grad(params, tokens, cfg, attention, mesh)
     with torch.no_grad():
         for p, m, g in zip(_leaves(params), _leaves(momentum), _leaves(grads)):
             m.mul_(cfg.momentum).add_(g)
@@ -242,15 +352,81 @@ def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
     return params, momentum, loss
 
 
-def _resolve(cfg: Optional[ModelConfig], attention: Optional[str], device):
-    """Config, device and attention mode for a build on one device.
+def param_specs(cfg: ModelConfig) -> Params:
+    """Per leaf, the mesh axis each dimension is sharded over (None =
+    replicated), as the JAX version's PartitionSpecs: "pp" on the stacked
+    layer dim, "tp" over heads and ffn, "ep" over experts; replicated over
+    dp and sp. Axes the mesh lacks drop out (`shard_params`)."""
+    layers = {
+        "wq": ("pp", None, "tp"), "wk": ("pp", None, "tp"),
+        "wv": ("pp", None, "tp"), "wo": ("pp", "tp", None),
+    }
+    if cfg.n_experts:
+        layers["wr"] = ("pp", None, None)
+        layers["w1e"] = ("pp", "ep", None, "tp")
+        layers["w2e"] = ("pp", "ep", "tp", None)
+    else:
+        layers["w1"] = ("pp", None, "tp")
+        layers["w2"] = ("pp", "tp", None)
+    return {"embed": (None, "tp"), "unembed": ("tp", None), "layers": layers}
 
-    None auto-selects the flash kernel on CUDA and einsum on the CPU; the
-    seq-length crossover between the two on the card is not measured yet."""
+
+def shard_params(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """This rank's shards of a full param tree (the same on every rank:
+    `init_params` from one seed, or `params_from_jax`), cut by
+    `param_specs`. Raises ValueError where a sharded dimension does not
+    divide by its axis, or n_heads by tp (a shard holds whole heads)."""
+    names, sizes = mesh.mesh_dim_names, mesh_shape(mesh)
+    tp = sizes["tp"]
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} is not divisible by tp={tp}")
+
+    def cut(key, t, spec):
+        for dim, axis in enumerate(spec):
+            if axis not in names:
+                continue
+            n = sizes[axis]
+            if t.shape[dim] % n:
+                raise ValueError(f"{key}: dimension {dim} of size "
+                                 f"{t.shape[dim]} is not divisible by "
+                                 f"{axis}={n}")
+            t = t.chunk(n, dim)[mesh.get_local_rank(axis)]
+        return t.contiguous()
+
+    return _with_leaves(params, [
+        cut(key, t, spec) for (key, t), spec in zip(
+            _named_leaves(params), _leaves(param_specs(cfg)))])
+
+
+def _token_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's dp rows of a (batch, seq) token batch, whole."""
+    dp, sp = mesh_shape(mesh)["dp"], mesh_shape(mesh)["sp"]
+    batch, seq = tokens.shape
+    if batch % dp or seq % sp:
+        raise ValueError(f"batch {batch} and seq {seq} must divide by "
+                         f"dp={dp} and sp={sp}")
+    return tokens.chunk(dp, 0)[mesh.get_local_rank("dp")].contiguous()
+
+
+def _resolve(cfg: Optional[ModelConfig], mesh, attention: Optional[str],
+             device):
+    """Config, device and attention mode for a build.
+
+    None auto-selects ring attention when sp > 1, else the flash kernels on
+    CUDA and einsum on the CPU; the seq-length crossover between flash and
+    einsum on the card is not measured yet."""
     cfg = cfg or ModelConfig()
     dev = resolve_device(device)
+    sp = 1
+    if mesh is not None:
+        sp = _Axes(mesh).size["sp"]   # refuses the axes not ported
     if attention is None:
-        attention = "flash" if dev.type == "cuda" else "einsum"
+        if sp > 1:
+            attention = "ring"
+        else:
+            attention = "flash" if dev.type == "cuda" else "einsum"
+    if attention == "flash" and sp != 1:
+        raise ValueError("flash attention requires sp == 1 (full local sequence)")
     if attention not in ("flash", "ring", "einsum"):
         raise ValueError(f"unknown attention mode {attention!r}")
     return cfg, dev, attention
@@ -266,37 +442,48 @@ def _place(cfg: ModelConfig, dev: torch.device, seed: int):
     return params, tokens
 
 
-def build_workload(cfg: Optional[ModelConfig] = None, seed: int = 0,
-                   attention: Optional[str] = None, device=None):
-    """Training build on one device.
+def build_workload(cfg: Optional[ModelConfig] = None, mesh=None,
+                   seed: int = 0, attention: Optional[str] = None,
+                   device=None):
+    """Training build, on one device or, with `mesh`, on this rank's shards.
 
     Returns (step, params, momentum, tokens): `step(params, momentum,
     tokens) -> (params, momentum, loss)` is `sgd_step`, which updates its
-    arguments in place; params and tokens are seeded as in `build_infer`;
-    momentum starts at zero."""
-    cfg, dev, attention = _resolve(cfg, attention, device)
+    arguments in place; params and tokens are seeded as in `build_infer`
+    (on a mesh every rank draws the whole model and batch from the seed and
+    keeps its shards and its dp rows, whole); momentum starts at zero."""
+    cfg, dev, attention = _resolve(cfg, mesh, attention, device)
     params, tokens = _place(cfg, dev, seed)
+    if mesh is not None:
+        params, tokens = shard_params(params, cfg, mesh), _token_rows(tokens, mesh)
     momentum = _with_leaves(params, [torch.zeros_like(p)
                                      for p in _leaves(params)])
 
     def step(p: Params, m: Params, t: torch.Tensor):
-        return sgd_step(p, m, t, cfg, attention)
+        return sgd_step(p, m, t, cfg, attention, mesh)
 
     return step, params, momentum, tokens
 
 
-def build_infer(cfg: Optional[ModelConfig] = None, seed: int = 0,
+def build_infer(cfg: Optional[ModelConfig] = None, mesh=None, seed: int = 0,
                 attention: Optional[str] = None, device=None):
-    """Serving-path build on one device.
+    """Serving-path build, on one device or, with `mesh`, on this rank's
+    shards.
 
     Returns (forward fn -> logits, params, tokens): params from a generator
-    seeded with `seed`, a token batch from one seeded with `seed + 1`. The
-    forward runs without autograd and can be called repeatedly."""
-    cfg, dev, attention = _resolve(cfg, attention, device)
+    seeded with `seed`, a token batch from one seeded with `seed + 1` (on a
+    mesh, this rank's (dp, sp) block of it; the logits are the block's).
+    The forward runs without autograd and can be called repeatedly."""
+    cfg, dev, attention = _resolve(cfg, mesh, attention, device)
     params, tokens = _place(cfg, dev, seed)
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
+        sp = mesh_shape(mesh)["sp"]
+        tokens = _token_rows(tokens, mesh).chunk(sp, 1)[
+            mesh.get_local_rank("sp")].contiguous()
 
     @torch.no_grad()
     def fwd(p: Params, t: torch.Tensor) -> torch.Tensor:
-        return forward(p, t, cfg, attention)
+        return forward(p, t, cfg, attention, mesh)
 
     return fwd, params, tokens
