@@ -32,7 +32,15 @@ failure:
    mfu through the mesh path over NCCL at world size 1 and require it bit
    for bit equal to the no-mesh step (what a one-card machine can show of
    the NCCL path: the collectives between cards need several cards);
-6. print one JSON line of kernels, then, last, the device line.
+6. the top-1 switch MoE at the mfu width with 4 experts: the training
+   and the serving path through `validate_slice`, each with the launch
+   counts set to 0 just before it (K1, K2 and K3 n_layers times per step;
+   K1 n_layers times per forward and no K2 or K3); the scatter dispatch
+   against its one-hot plain version on one layer's input, bit for bit;
+   and one MoE training step through the kernels against the same step
+   through their plain versions, on the same weights, with the route
+   agreement of the two;
+7. print one JSON line of kernels, then, last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -91,6 +99,17 @@ ARGMAX_AGREE_MIN_MFU = 0.97
 # the configuration the port's tolerances were sized at
 SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
              seq_len=96, batch=2)
+# The MoE step through the kernels vs the same step through their plain
+# versions. Top-1 routing turns a router logit moved by the attention's
+# roundings into a whole token's difference where a token's two best
+# logits tie at that level, so the plain step takes the kernel step's
+# routes (with its own gates): then only the attention's roundings differ,
+# as in the dense step, and the dense bars hold (STEP_GRAD_REL_TOL,
+# STEP_LOSS_TOL). The plain step's own routes must agree with the kernel
+# step's on at least 99% of the 8 layers x 16384 tokens, and every
+# disagreement must be a tie within its layer's largest logit difference.
+MOE_EXPERTS = 4
+MOE_ROUTE_AGREE_MIN = 0.99
 
 
 def _nvidia_smi() -> str:
@@ -374,6 +393,171 @@ def check_flash_bwd(torch, fa, dev):
 def _reset(fa):
     for name in fa.launches:
         fa.launches[name] = 0
+
+
+class _Router:
+    """Stands in for `workload._route`: records each call's router logits
+    and, with `pinned` experts per call, routes to those (with its own
+    gates); else to its own argmax, as `_route` does."""
+
+    def __init__(self, torch, pinned=None):
+        self.torch, self.pinned, self.logits, self.top1 = torch, pinned, [], []
+
+    def __call__(self, xt, wr):
+        logits = xt.float() @ wr.to(self.torch.bfloat16).float()
+        gates = self.torch.softmax(logits, dim=-1)
+        top1 = gates.argmax(dim=-1)
+        self.logits.append(logits.detach())
+        self.top1.append(top1)
+        if self.pinned is not None:
+            top1 = self.pinned[len(self.top1) - 1]
+        return gates.gather(-1, top1[:, None])[:, 0], top1
+
+
+def compare_moe_steps(torch, fa, cfg, dev) -> dict:
+    """One MoE training step's loss and gradients through the kernels and
+    through their plain versions on the same weights and tokens, the plain
+    step on the kernel step's routes; and the plain step's own routes
+    against the kernel step's (every disagreement a tie within the
+    layer's largest router-logit difference)."""
+    from tpu_device_plugin_torch.validator import workload
+    _, params, _, tokens = workload.build_workload(cfg, seed=0,
+                                                   attention="flash",
+                                                   device=dev)
+    _reset(fa)
+    kernel_routes = _Router(torch)
+    with mock.patch.object(workload, "_route", kernel_routes):
+        loss, grads = workload.value_and_grad(params, tokens, cfg, "flash")
+    expected = dict.fromkeys(fa.launches, cfg.n_layers)
+    if fa.launches != expected:
+        raise AssertionError(f"kernel step launched {fa.launches}, "
+                             f"expected {expected}")
+    plain_routes = _Router(torch, pinned=kernel_routes.top1)
+    with mock.patch.object(fa, "flash_attention_fwd", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              fa.flash_attention_bwd_plain), \
+            mock.patch.object(workload, "_route", plain_routes):
+        ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
+    if fa.launches != expected:
+        raise AssertionError(f"plain step launched a kernel: {fa.launches}")
+    rel = {}
+    for (key, g), r in zip(workload._named_leaves(grads),
+                           workload._leaves(ref)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient for {key}")
+        rel[key] = ((g - r).abs().max() / r.abs().max()).item()
+    agree, untied, max_dl = [], 0, 0.0
+    for lk, lp, tk, tp in zip(kernel_routes.logits, plain_routes.logits,
+                              kernel_routes.top1, plain_routes.top1):
+        dl = (lk - lp).abs().max()
+        max_dl = max(max_dl, dl.item())
+        agree.append(int((tk == tp).sum()))
+        flip = tk != tp
+        gap = (lk.gather(1, tk[:, None]) - lk.gather(1, tp[:, None])).abs()[:, 0]
+        untied += int((flip & (gap > dl)).sum())
+    tokens_routed = len(agree) * cfg.batch * cfg.seq_len
+    del grads, ref, params
+    torch.cuda.empty_cache()
+    return dict(loss=loss.item(), plain_loss=ref_loss.item(),
+                loss_diff=abs(loss.item() - ref_loss.item()),
+                max_grad_rel=max(rel.values()), grad_rel=rel,
+                routes_agreeing_per_layer=agree,
+                route_agreement=sum(agree) / tokens_routed,
+                route_flips_not_ties=untied, max_router_logit_diff=max_dl)
+
+
+def check_moe_dispatch(torch, fa, cfg, dev) -> dict:
+    """The scatter dispatch (`workload._moe`) against its one-hot plain
+    version (`_moe_onehot`) on layer 0's MoE input at the mfu width, bit
+    for bit, and the time of each (CUDA events)."""
+    from tpu_device_plugin_torch.validator import workload
+    _, params, tokens = workload.build_infer(cfg, seed=0, attention="flash",
+                                             device=dev)
+    layer = {k: v[0] for k, v in params["layers"].items()}
+    with torch.no_grad():
+        x = workload._bf16(params["embed"])[tokens]
+        x = x + workload._attention(workload._rms_norm(x), layer, cfg, "flash")
+        x = workload._rms_norm(x)
+        out = workload._moe(x, layer, cfg)
+        ref = workload._moe_onehot(x, layer, cfg)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, ref))
+        dropped = int((ref == 0).all(-1).sum())
+        ms = _cuda_ms(torch, lambda: workload._moe(x, layer, cfg), 10)
+        onehot_ms = _cuda_ms(torch, lambda: workload._moe_onehot(x, layer,
+                                                                 cfg), 3)
+    line = dict(check="MoE dispatch: scatter vs one-hot, bit for bit",
+                tokens=cfg.batch * cfg.seq_len, d=cfg.d_model,
+                n_experts=cfg.n_experts,
+                capacity=workload._capacity(cfg.batch * cfg.seq_len,
+                                            cfg.n_experts,
+                                            cfg.capacity_factor),
+                dropped_tokens=dropped, equal=equal,
+                finite=bool(torch.isfinite(out).all()),
+                moe_ms=ms, onehot_ms=onehot_ms, ok=equal)
+    del params, out, ref, x
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_moe(torch, fa, cfg, dev):
+    """Phase 6: the MoE training and serving paths through validate_slice,
+    each counted from 0, then the dispatch and the step comparison.
+    Returns {path: launches}."""
+    from tpu_device_plugin_torch.validator.probe import validate_slice
+    launches = {}
+    _reset(fa)
+    report = validate_slice(cfg=cfg, steps=3, attention="flash", mode="train",
+                            device="cuda")
+    launches["moe_train"] = dict(fa.launches)
+    print(report.to_json(), flush=True)
+    if not report.ok or not report.loss_end < report.loss_start:
+        raise AssertionError(f"validate_slice(mfu MoE, train) not ok: "
+                             f"{report.error}")
+    expected = dict.fromkeys(fa.launches, cfg.n_layers * report.steps)
+    if report.steps <= 0 or launches["moe_train"] != expected:
+        raise AssertionError(
+            f"MoE training launches {launches['moe_train']} in "
+            f"{report.steps} steps; expected {cfg.n_layers} of each kernel "
+            "per step")
+    torch.cuda.empty_cache()
+
+    _reset(fa)
+    report = validate_slice(cfg=cfg, steps=5, attention="flash", mode="infer",
+                            device="cuda")
+    launches["moe_infer"] = dict(fa.launches)
+    print(report.to_json(), flush=True)
+    if not report.ok:
+        raise AssertionError(f"validate_slice(mfu MoE, infer) not ok: "
+                             f"{report.error}")
+    expected = {"flash_fwd": cfg.n_layers * report.forwards,
+                "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if report.forwards <= 0 or launches["moe_infer"] != expected:
+        raise AssertionError(
+            f"MoE serving launches {launches['moe_infer']} in "
+            f"{report.forwards} forwards; expected {expected}")
+    print(json.dumps({"launches": launches}), flush=True)
+    torch.cuda.empty_cache()
+
+    line = check_moe_dispatch(torch, fa, cfg, dev)
+    print(json.dumps(line), flush=True)
+    if not (line["ok"] and line["finite"]):
+        raise AssertionError(f"MoE dispatch disagrees with the one-hot "
+                             f"form: {line}")
+
+    line = compare_moe_steps(torch, fa, cfg, dev)
+    line.update(check="mfu MoE training step: kernels vs plain versions, "
+                "plain on the kernel step's routes",
+                grad_rel_tol=STEP_GRAD_REL_TOL, loss_tol=STEP_LOSS_TOL,
+                route_agree_min=MOE_ROUTE_AGREE_MIN)
+    print(json.dumps(line), flush=True)
+    if (line["max_grad_rel"] > STEP_GRAD_REL_TOL
+            or line["loss_diff"] > STEP_LOSS_TOL
+            or line["route_agreement"] < MOE_ROUTE_AGREE_MIN
+            or line["route_flips_not_ties"]):
+        raise AssertionError("the MoE training step through the kernels "
+                             "disagrees with the plain versions")
+    return launches
 
 
 def compare_steps(torch, fa, cfg, dev) -> dict:
@@ -737,15 +921,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     modes = time_ring_modes(torch, fa, dev)
     _, mesh_launches = check_mesh_nccl(torch, fa, cfg, dev)
+    torch.cuda.empty_cache()
+
+    # 6. the MoE at the mfu width
+    moe_launches = check_moe(torch, fa, ModelConfig(**PRESETS["mfu"],
+                                                    n_experts=MOE_EXPERTS),
+                             dev)
     for entry in entries:
         kernel = entry["name"]
         for sp, counts in ring_launches.items():
             entry["launches_by_path"][f"ring_sp{sp}"] = counts[kernel]
         entry["launches_by_path"]["mesh_nccl_train"] = mesh_launches[kernel]
+        for path, counts in moe_launches.items():
+            entry["launches_by_path"][path] = counts[kernel]
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["ring_modes"] = modes[kernel]
 
-    # 6. results
+    # 7. results
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 """Where one step of the PyTorch port spends its time on one CUDA card.
 
     python3 scripts/profile_torch_step.py [--mode train|infer] [--preset mfu]
-                                          [--steps 3] [--trace out.json]
+                                          [--experts N] [--steps 3]
+                                          [--trace out.json]
 
 Builds the port's training step (`build_workload`) or serving forward
-(`build_infer`) with flash attention, runs two warm-up steps, then `--steps`
+(`build_infer`) with flash attention (with `--experts`, the top-1 switch
+MoE of that many experts), runs two warm-up steps, then `--steps`
 steps under `torch.profiler` (CPU and CUDA activities), synchronised at
 the end. Prints one JSON object:
 
@@ -66,6 +68,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--mode", choices=["train", "infer"], default="train")
     parser.add_argument("--preset", default="mfu")
+    parser.add_argument("--experts", type=int, default=0)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--trace", default=None,
                         help="also write a Chrome trace to this path")
@@ -75,7 +78,8 @@ def main(argv=None) -> int:
         return 1
     from tpu_device_plugin_torch.validator import workload
     from tpu_device_plugin_torch.validator.probe import PRESETS
-    cfg = workload.ModelConfig(**PRESETS[args.preset])
+    cfg = workload.ModelConfig(**PRESETS[args.preset],
+                               n_experts=args.experts)
     if args.mode == "train":
         step, params, momentum, tokens = workload.build_workload(
             cfg, attention="flash", device="cuda")
@@ -115,7 +119,8 @@ def main(argv=None) -> int:
     wall_ms = wall_s * 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "mode": args.mode, "preset": args.preset, "steps": n,
+        "mode": args.mode, "preset": args.preset,
+        "n_experts": args.experts, "steps": n,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -252,3 +252,46 @@ def test_thread_ring_flash_matches_global_plain(cuda_device, dtype, d, sp):
     for name, g, ref, t in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, terms):
         assert g.dtype == q.dtype and torch.isfinite(g).all(), name
         assert grad_close(g, ref, dtype, t), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factor", [1.25, 0.25])
+def test_moe_dispatch_equals_onehot_on_card(cuda_device, factor):
+    """The scatter dispatch against its one-hot plain version on the card,
+    bit for bit (each one-hot einsum element is one exact bf16 product)."""
+    cfg = workload.ModelConfig(**SMALL, n_experts=4, capacity_factor=factor)
+    params = workload.init_params(
+        torch.Generator(cuda_device).manual_seed(0), cfg, cuda_device)
+    layer = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.randn((cfg.batch, cfg.seq_len, cfg.d_model), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    with torch.no_grad():
+        out = workload._moe(x.bfloat16(), layer, cfg)
+        ref = workload._moe_onehot(x.bfloat16(), layer, cfg)
+    assert torch.isfinite(out).all() and torch.equal(out, ref)
+    assert bool((ref == 0).all(-1).any()) == (factor < 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["train", "infer"])
+def test_moe_paths_go_through_the_kernels(cuda_device, mode):
+    """The MoE training step launches K1, K2 and K3 once per layer, the
+    serving forward K1 only; training lowers the loss."""
+    cfg = workload.ModelConfig(**SMALL, n_experts=4)
+    before = dict(fa.launches)
+    if mode == "infer":
+        fwd, params, tokens = workload.build_infer(cfg, device=cuda_device)
+        logits = fwd(params, tokens)
+        assert torch.isfinite(logits).all()
+        per_call = {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
+                    "flash_bwd_dq": 0}
+        calls = 1
+    else:
+        step, params, momentum, tokens = workload.build_workload(
+            cfg, device=cuda_device)
+        losses = [step(params, momentum, tokens)[2].item() for _ in range(3)]
+        assert losses[-1] < losses[0]
+        per_call = dict.fromkeys(fa.launches, cfg.n_layers)
+        calls = 3
+    for name, n in per_call.items():
+        assert fa.launches[name] == before[name] + calls * n, name

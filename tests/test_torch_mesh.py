@@ -68,22 +68,19 @@ def test_slice_mesh_refuses_indivisible_sizes_before_any_group():
 
 
 def _mesh_worker(rank, spawned_mesh, n, meshes):
-    """Each mesh's axis names, shape, this rank's coordinates and what a
-    training build on it raises (the pp and ep axes are not ported); the
-    mesh spawn built and the rank's intra-op threads."""
+    """Each mesh's axis names, shape, this rank's coordinates and the
+    shape of its shard of `wq` from a training build of a 4-expert MoE on
+    it; the mesh spawn built and the rank's intra-op threads."""
     from tpu_device_plugin_torch.validator.workload import (ModelConfig,
                                                             build_workload)
     out = []
     for kw, _, _ in meshes:
         mesh = slice_mesh(n, device_type="cpu", **kw)
-        try:
-            build_workload(ModelConfig(n_layers=2, batch=8), mesh,
-                           device="cpu")
-            refused = ""
-        except NotImplementedError as exc:
-            refused = str(exc)
+        _, params, _, _ = build_workload(
+            ModelConfig(n_layers=2, batch=8, n_experts=4), mesh, device="cpu")
         out.append((mesh.mesh_dim_names, tuple(mesh.mesh.shape),
-                    tuple(mesh.get_coordinate()), refused))
+                    tuple(mesh.get_coordinate()),
+                    tuple(params["layers"]["wq"].shape)))
     return out, mesh_shape(spawned_mesh), torch.get_num_threads()
 
 
@@ -97,14 +94,13 @@ def test_slice_mesh_axes_over_processes(n, meshes):
     per_rank = [out for out, _, _ in per_rank]
     for i, (_, names, shape) in enumerate(meshes):
         coords = set()
+        sizes = dict(zip(names, shape))
         for rank_out in per_rank:
-            got_names, got_shape, coord, refused = rank_out[i]
+            got_names, got_shape, coord, wq = rank_out[i]
             assert got_names == names and got_shape == shape
             coords.add(coord)
-            if "pp" in names or "ep" in names:
-                assert "not yet ported" in refused and "item 5" in refused
-            else:
-                assert refused == ""
+            # the layers cut over pp, the heads over tp
+            assert wq == (2 // sizes.get("pp", 1), 128, 128 // sizes["tp"])
         # every rank holds one place on the mesh, tp innermost
         assert len(coords) == n
         assert per_rank[1][i][2][-1] == (1 if shape[-1] > 1 else 0)

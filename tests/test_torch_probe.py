@@ -162,12 +162,9 @@ def test_workload_flops_at_mfu():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "infer", "--ep", "2"], "item 5"),
-    (["--mode", "attn-bench"], "item 7"),
-    (["--mode", "ring-bench"], "item 7"),
-    (["--pp", "2"], "item 5"),
-    (["--ep", "2"], "item 5"),
-    (["--tp", "2", "--pp", "2"], "item 5"),
+    (["--mode", "attn-bench"], "item 3"),
+    (["--mode", "ring-bench"], "item 3"),
+    (["--gpipe-microbatches", "2", "--pp", "2"], "item 2"),
 ])
 def test_main_rejects_unported_with_exit_2(argv, match, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -237,14 +234,21 @@ def test_main_takes_tp_and_sp(argv, rc, capsys):
 
 
 def test_dryrun_multichip_eight_processes(capsys):
+    """Both regimes of the JAX version's dryrun: (dp, sp, tp), then the
+    (pp, ep, tp) MoE; the GPipe regime is named as not ported."""
     from tpu_device_plugin_torch.entry import dryrun_multichip
     dryrun_multichip(8)
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith(
         "dryrun_multichip: mesh={'dp': 1, 'sp': 2, 'tp': 4} loss=")
-    loss = float(lines[0].rsplit("=", 1)[1])
-    assert 0 < loss < 10
-    assert "not yet ported" in lines[1] and "items 5 and 6" in lines[1]
+    assert lines[1].startswith(
+        "dryrun_multichip: mesh={'pp': 2, 'dp': 1, 'sp': 1, 'ep': 2, "
+        "'tp': 2} loss=")
+    for line in lines[:2]:
+        loss = float(line.rsplit("=", 1)[1])
+        assert 0 < loss < 10
+    assert "not yet ported" in lines[2] and "item 2" in lines[2]
+    assert len(lines) == 3
 
 
 def test_main_exit_code_one_without_cuda(monkeypatch, capsys):

@@ -144,10 +144,3 @@ def test_workload_flops_matches_jax(preset):
     cfg = tprobe.PRESETS[preset]
     assert (tprobe._workload_flops(tw.ModelConfig(**cfg))
             == jprobe._workload_flops(jw.ModelConfig(**cfg)))
-
-
-def test_moe_training_is_refused():
-    cfg = tw.ModelConfig(**dict(CONFIGS["small"], n_experts=2))
-    step, params, momentum, tokens = tw.build_workload(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        step(params, momentum, tokens)

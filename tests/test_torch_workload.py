@@ -152,13 +152,6 @@ def test_resolve_modes():
     assert (fwd(params, tokens) - einsum).abs().max() <= 0.02 * einsum.abs().max()
 
 
-def test_moe_forward_is_refused():
-    fwd, params, tokens = tw.build_infer(
-        tw.ModelConfig(**dict(SMALL, n_experts=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fwd(params, tokens)
-
-
 def test_build_infer_is_seeded():
     cfg = tw.ModelConfig(**SMALL)
     fwd, p1, t1 = tw.build_infer(cfg, seed=3, device="cpu")

@@ -2,8 +2,9 @@
 
 `entry()` is the loss of the burn-in transformer at a small configuration,
 with example arguments, on CUDA unless the caller passes `device="cpu"`.
-`dryrun_multichip(n)` runs one sharded training step on a (dp, sp, tp)
-mesh of n gloo CPU processes.
+`dryrun_multichip(n)` runs one sharded training step per regime of the
+JAX version on n gloo CPU processes: (dp, sp, tp), then, where n is a
+multiple of 8, (pp, ep, tp) with a top-1 switch MoE.
 """
 
 from __future__ import annotations
@@ -25,34 +26,50 @@ def entry(device=None):
     return fn, (params, tokens)
 
 
-def _dryrun_rank(rank, mesh, cfg):
-    from .validator.mesh import mesh_shape
+def _dryrun_rank(rank, _mesh, regimes):
+    """One training step per (slice_mesh keywords, config) regime; the
+    mesh's shape and the loss of each."""
+    import torch.distributed as dist
+
+    from .validator.mesh import mesh_shape, slice_mesh
     from .validator.workload import build_workload
-    step, params, momentum, tokens = build_workload(cfg, mesh, device="cpu")
-    _, _, loss = step(params, momentum, tokens)
-    return mesh_shape(mesh), loss.item()
+    out = []
+    for mesh_kw, cfg in regimes:
+        mesh = slice_mesh(dist.get_world_size(), device_type="cpu", **mesh_kw)
+        step, params, momentum, tokens = build_workload(cfg, mesh,
+                                                        device="cpu")
+        _, _, loss = step(params, momentum, tokens)
+        out.append((mesh_shape(mesh), loss.item()))
+    return out
 
 
 def dryrun_multichip(n_devices: int) -> None:
-    """One training step on a (dp, sp, tp) mesh over `n_devices` gloo CPU
-    processes: the first regime of the JAX version (tp up to 4, sp 2 where
-    it divides, dp the rest; ring attention over sp). Prints rank 0's
-    `dryrun_multichip: mesh={...} loss=...`. The JAX version's pipeline and
-    expert regimes, run where n is a multiple of 8, are not ported yet."""
+    """One training step per sharding regime over `n_devices` gloo CPU
+    processes, as the JAX version: (dp, sp, tp) with tp up to 4, sp 2
+    where it divides and ring attention over it; then, where n is a
+    multiple of 8, pp 2 x ep 2 x tp 2 with a 4-expert MoE (stage-cut
+    layers, experts over ep). Prints rank 0's `dryrun_multichip: mesh={...}
+    loss=...` per regime. The JAX version's third regime, the GPipe
+    schedule, is not ported yet (ROADMAP.md, Queue 1, item 2)."""
     from .validator.distributed import spawn
-    from .validator.mesh import infer_mesh_shape
+    from .validator.mesh import mesh_dims
     from .validator.workload import ModelConfig
 
     tp = 1
     while tp * 2 <= min(n_devices, 4) and n_devices % (tp * 2) == 0:
         tp *= 2
     sp = 2 if n_devices % (tp * 2) == 0 and n_devices // tp >= 2 else 1
-    dp, _, _ = infer_mesh_shape(n_devices, tp=tp, sp=sp)
-    cfg = ModelConfig(seq_len=64, batch=max(4, dp * 2), n_layers=2)
-    shape, loss = spawn(_dryrun_rank, n_devices, "cpu", timeout_s=600,
-                        args=(cfg,), mesh=dict(tp=tp, sp=sp))[0]
-    print(f"dryrun_multichip: mesh={shape} loss={loss:.4f}")
+    dp = dict(mesh_dims(n_devices, tp=tp, sp=sp))["dp"]
+    regimes = [(dict(tp=tp, sp=sp),
+                ModelConfig(seq_len=64, batch=max(4, dp * 2), n_layers=2))]
     if n_devices % 8 == 0:
-        print("dryrun_multichip: the (pp, ep, tp) MoE regime and the GPipe "
-              "regime are not yet ported (ROADMAP.md, Queue 1, items 5 "
-              "and 6)")
+        moe = dict(pp=2, ep=2, tp=2, sp=1)
+        dp2 = dict(mesh_dims(n_devices, **moe))["dp"]
+        regimes.append((moe, ModelConfig(seq_len=64, batch=max(4, dp2 * 2),
+                                         n_layers=2, n_experts=4)))
+    for shape, loss in spawn(_dryrun_rank, n_devices, "cpu", timeout_s=600,
+                             args=(regimes,))[0]:
+        print(f"dryrun_multichip: mesh={shape} loss={loss:.4f}")
+    if n_devices % 8 == 0:
+        print("dryrun_multichip: the GPipe regime is not yet ported "
+              "(ROADMAP.md, Queue 1, item 2)")

@@ -9,8 +9,12 @@ explicit `torch.distributed` call over a group of the `DeviceMesh`
 - `spawn` runs one function in n processes, one per device, and returns
   what each returned.
 - `enter`, `exit_`, `gather` are the autograd-aware collectives of
-  Megatron-style tensor parallelism; `all_reduce_grads` sums the gradients
-  of replicated leaves over the data- and sequence-parallel groups.
+  Megatron-style tensor parallelism; `all_reduce_grads` sums gradients
+  over the groups on which a leaf's rank holds only a partial.
+- `pipe_send`, `pipe_recv` move activations between pipeline stages, and
+  their gradients back in the backward.
+- `queue_offsets` gives top-1 routing its global token order: each rank's
+  place in every expert's queue over the whole (dp, sp)-sharded batch.
 
 Nothing here starts a process or opens a file at import.
 """
@@ -234,3 +238,80 @@ def all_reduce_grads(grads: List[torch.Tensor], groups) -> List[torch.Tensor]:
         out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
         at += g.numel()
     return out
+
+
+# --- pipeline stages ------------------------------------------------------
+#
+# Stage k runs layers [k L/pp, (k + 1) L/pp) and hands its output to the
+# rank of the same (dp, sp, ep, tp) place on stage k + 1. The send is the
+# end of an earlier stage's loss: a zero that, differentiated, receives the
+# gradient of what it sent; the receive sends the gradient back. Peers are
+# global ranks.
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dst):
+        ctx.dst, ctx.meta = dst, (x.shape, x.dtype, x.device)
+        dist.send(x.contiguous(), dst)
+        return x.new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, _):
+        shape, dtype, device = ctx.meta
+        grad = torch.empty(shape, dtype=dtype, device=device)
+        dist.recv(grad, ctx.dst)
+        return grad, None
+
+
+class _Recv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, like, src):
+        ctx.src = src
+        x = torch.empty_like(like)
+        dist.recv(x, src)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        dist.send(grad.contiguous(), ctx.src)
+        return None, None
+
+
+def pipe_send(x: torch.Tensor, dst: int) -> torch.Tensor:
+    """Sends x to global rank `dst`; returns an f32 zero whose backward
+    receives x's gradient from `dst` (the sending stage's loss)."""
+    return _Send.apply(x, dst)
+
+
+def pipe_recv(like: torch.Tensor, src: int) -> torch.Tensor:
+    """The tensor global rank `src` sends, of `like`'s shape and dtype; its
+    gradient is sent back to `src` in the backward, and `like` gets none
+    (`like` only ties the receive into the graph)."""
+    return _Recv.apply(like, src)
+
+
+# --- top-1 routing over a sharded batch -------------------------------------
+
+
+def queue_offsets(counts: torch.Tensor, dp=None, sp=None) -> torch.Tensor:
+    """How many tokens of the global batch reach each expert ahead of each
+    of this rank's rows.
+
+    The global token order is b-major: row by row, each row's sp blocks in
+    order. `counts` (rows, E) holds, per row of this rank's (dp, sp) block
+    and per expert, the block's tokens routed there; `dp` and `sp` are this
+    rank's (group, index) on each axis, or None for an axis of one rank.
+    Returns (rows, E): the tokens routed to each expert before the row's
+    first token here. Only the counts cross ranks (an all-gather over sp,
+    then over dp)."""
+    blocks = counts[None]                              # (sp, rows, E)
+    if sp is not None:
+        blocks = _all_gather(blocks, 0, sp[0])
+    blocks = blocks[None]                              # (dp, sp, rows, E)
+    if dp is not None:
+        blocks = _all_gather(blocks, 0, dp[0])
+    n_dp, n_sp, rows, e = blocks.shape
+    order = blocks.transpose(1, 2).reshape(-1, e)      # b-major
+    before = (order.cumsum(0) - order).view(n_dp, rows, n_sp, e)
+    return before[0 if dp is None else dp[1], :, 0 if sp is None else sp[1]]

@@ -14,7 +14,7 @@ neighbouring cards).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 
 def infer_mesh_shape(n_devices: int,
@@ -37,6 +37,24 @@ def infer_mesh_shape(n_devices: int,
     return dp, sp, tp
 
 
+def mesh_dims(n_devices: int,
+              tp: Optional[int] = None,
+              sp: Optional[int] = None,
+              pp: Optional[int] = None,
+              ep: Optional[int] = None) -> List[Tuple[str, int]]:
+    """The (axis, size) pairs of `slice_mesh`'s mesh, outermost first:
+    pp, dp, sp, ep, tp, with pp and ep only when > 1. Raises ValueError
+    where the sizes do not divide `n_devices`."""
+    pp = pp or 1
+    ep = ep or 1
+    if n_devices % (pp * ep) != 0:
+        raise ValueError(f"{n_devices} devices not divisible by pp={pp} * ep={ep}")
+    dp, sp_, tp_ = infer_mesh_shape(n_devices // (pp * ep), tp=tp, sp=sp)
+    dims = [("pp", pp), ("dp", dp), ("sp", sp_), ("ep", ep), ("tp", tp_)]
+    return [(name, size) for name, size in dims
+            if size > 1 or name in ("dp", "sp", "tp")]
+
+
 def slice_mesh(n_devices: int = 1,
                tp: Optional[int] = None,
                sp: Optional[int] = None,
@@ -48,14 +66,7 @@ def slice_mesh(n_devices: int = 1,
     Axis order (outermost→innermost): pp, dp, sp, ep, tp — pp/ep included
     only when > 1, so the default is the 3-axis ("dp", "sp", "tp") mesh.
     """
-    pp = pp or 1
-    ep = ep or 1
-    if n_devices % (pp * ep) != 0:
-        raise ValueError(f"{n_devices} devices not divisible by pp={pp} * ep={ep}")
-    dp, sp_, tp_ = infer_mesh_shape(n_devices // (pp * ep), tp=tp, sp=sp)
-    dims = [("pp", pp), ("dp", dp), ("sp", sp_), ("ep", ep), ("tp", tp_)]
-    dims = [(name, size) for name, size in dims
-            if size > 1 or name in ("dp", "sp", "tp")]
+    dims = mesh_dims(n_devices, tp, sp, pp, ep)
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(size for _, size in dims),
                             mesh_dim_names=tuple(name for name, _ in dims))

@@ -4,12 +4,14 @@ Port of `tpu_device_plugin/validator/probe.py`: process start → CUDA
 device enumerated → first step done, then either training (`--mode train`,
 the default: SGD steps, differenced step time, model TFLOP/s and MFU, loss
 must fall) or serving (`--mode infer`: latency percentiles, tokens/s), and
-a matmul/memory microbench checked against the card's datasheet peak. With
-more than one device (every visible card by default) the step runs on a
-(dp, sp, tp) mesh, one process per card (`--tp`, `--sp`). Exit code is
-non-zero when the slice is unusable, so a VMI startup probe can gate
-workload admission on it. MoE with the pp/ep axes, GPipe and the benches
-are later slices (ROADMAP.md, Queue 1).
+a matmul/memory microbench checked against the card's datasheet peak. The
+model is dense or a top-1 switch MoE (`--experts`). With more than one
+device (every visible card by default) the step runs on a
+(pp, dp, sp, ep, tp) mesh, one process per card (`--pp`, `--tp`, `--sp`,
+`--ep`). Exit code is non-zero when the slice is unusable, so a VMI
+startup probe can gate workload admission on it; 2 marks the caller's
+configuration. GPipe and the benches are later slices (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -89,6 +91,12 @@ def _workload_flops(cfg) -> float:
 # reading on the card: host jitter is ~ms-scale, so the signal must stand
 # ~100x above it. timing.paired_time grows the chain length to reach it.
 MICROBENCH_MIN_DIFF_S = 0.25
+# The same floor on the CPU, where the microbench only has to give a
+# positive, plausible reading: with no floor, two chained 512^3 matmuls on
+# one thread differ by ~10 ms, and on a loaded host the median of three
+# paired differences came out <= 0 (a reading of 0 TFLOP/s) in 12 of 40
+# calls; at 20 ms, in none of 32 (8 cores, 16 busy processes).
+MICROBENCH_MIN_DIFF_S_CPU = 0.02
 
 
 def _microbench(device: torch.device, min_diff_s: Optional[float] = None):
@@ -102,7 +110,8 @@ def _microbench(device: torch.device, min_diff_s: Optional[float] = None):
     from .timing import paired_time
     on_gpu = device.type == "cuda"
     if min_diff_s is None:
-        min_diff_s = MICROBENCH_MIN_DIFF_S if on_gpu else 0.0
+        min_diff_s = (MICROBENCH_MIN_DIFF_S if on_gpu
+                      else MICROBENCH_MIN_DIFF_S_CPU)
     n = 4096 if on_gpu else 512
     # row-stochastic so the chained products stay finite in bf16
     x = torch.full((n, n), 1.0 / n, dtype=torch.bfloat16, device=device)
@@ -143,17 +152,19 @@ MESH_TIMEOUT_S = 900.0
 
 def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                    mode: str = "train", device=None, tp: Optional[int] = None,
-                   sp: Optional[int] = None,
-                   n_devices: Optional[int] = None) -> SliceReport:
+                   sp: Optional[int] = None, n_devices: Optional[int] = None,
+                   pp: Optional[int] = None,
+                   ep: Optional[int] = None) -> SliceReport:
     """Validation of a slice: training steps (`mode="train"`) or serving
     forwards (`mode="infer"`) on `device` (CUDA by default).
 
     `n_devices` (every visible card on CUDA, 1 on the CPU, by default) is
-    factored into a (dp, sp, tp) mesh by `mesh.infer_mesh_shape(n_devices,
-    tp, sp)`; a shape that does not divide lands in `error`. With one
-    device there is no mesh. With more, one process per device runs the
-    mesh (gloo processes on the CPU): rank 0 fills the report, `ok` is
-    every rank's verdict ANDed, and the microbench runs on rank 0's card."""
+    factored into a (pp, dp, sp, ep, tp) mesh by `mesh.mesh_dims`; a shape
+    that does not divide lands in `error`. With one device there is no
+    mesh. With more, one process per device runs the mesh (gloo processes
+    on the CPU): rank 0 fills the report, `ok` is every rank's verdict
+    ANDed, and the microbench runs on rank 0's card. `mesh_shape` lists
+    the mesh's axes (pp and ep where they are larger than 1)."""
     report = SliceReport(ok=False)
     if mode not in ("train", "infer"):
         report.invalid_config = True
@@ -161,7 +172,7 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                         "Queue 1); 'train' and 'infer' run")
         return report
     try:
-        from .mesh import infer_mesh_shape
+        from .mesh import mesh_dims
         from .workload import ModelConfig, resolve_device
         dev = resolve_device(device)
         report.devices_visible_s = time.monotonic() - _PROCESS_START
@@ -176,15 +187,16 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
         else:
             report.platform = dev.type
             report.device_kinds = [dev.type]
-        dp, sp_, tp_ = infer_mesh_shape(n_devices, tp, sp)
+        dims = dict(mesh_dims(n_devices, tp, sp, pp, ep))
         cfg = cfg or ModelConfig()
         steps = max(steps, 1)
         if n_devices > 1:
             from .distributed import spawn
-            report.mesh_shape = {"dp": dp, "sp": sp_, "tp": tp_}
+            report.mesh_shape = dims
             ranks = spawn(_validate_rank, n_devices, dev.type, MESH_TIMEOUT_S,
                           args=(cfg, steps, attention, mode, _PROCESS_START),
-                          mesh=dict(tp=tp_, sp=sp_))
+                          mesh=dict(tp=dims["tp"], sp=dims["sp"], pp=pp,
+                                    ep=ep))
             kept = ("platform", "n_devices", "device_kinds", "mesh_shape",
                     "devices_visible_s")
             for key, value in ranks[0].items():
@@ -375,10 +387,9 @@ PRESETS = {
 # what the CLI refuses until its slice lands, and the ROADMAP.md item that
 # brings it
 _NOT_PORTED_MODES = {
-    "attn-bench": "Queue 1, item 7 (benches)",
-    "ring-bench": "Queue 1, item 7 (benches)",
+    "attn-bench": "Queue 1, item 3 (benches)",
+    "ring-bench": "Queue 1, item 3 (benches)",
 }
-_NOT_PORTED_AXES = ("pp", "ep")
 
 
 def main(argv=None) -> int:
@@ -397,7 +408,8 @@ def main(argv=None) -> int:
     parser.add_argument("--preset", choices=sorted(PRESETS), default=None,
                         help="named model size: burnin = tiny defaults, "
                              "mfu = d_model 2048, seq 2048, 8 layers, "
-                             "mfu-lite = d_model 1024, 4 layers")
+                             "mfu-lite = d_model 1024, 4 layers; "
+                             "--seq-len/--experts/--remat compose on top")
     parser.add_argument("--seq-len", type=int, default=None)
     parser.add_argument("--remat", action="store_true",
                         help="recompute each layer in the backward instead "
@@ -414,30 +426,47 @@ def main(argv=None) -> int:
     parser.add_argument("--sp", type=int, default=None,
                         help="sequence-parallel size (ring attention), over "
                              "the visible cards")
-    for flag in _NOT_PORTED_AXES:
-        parser.add_argument(f"--{flag}", type=int, default=None,
-                            help="mesh axis size: not ported yet")
+    parser.add_argument("--pp", type=int, default=None,
+                        help="pipeline stages (the stacked layers cut over a "
+                             "pp mesh axis; n_layers %% pp must be 0)")
+    parser.add_argument("--ep", type=int, default=None,
+                        help="expert-parallel size (use with --experts)")
+    parser.add_argument("--experts", type=int, default=None,
+                        help="replace the MLP with a top-1 switch MoE of "
+                             "this many experts")
+    parser.add_argument("--gpipe-microbatches", type=int, default=0,
+                        help="the GPipe schedule: not ported yet")
     args = parser.parse_args(argv)
     if args.mode in _NOT_PORTED_MODES:
         parser.error(f"--mode {args.mode} is not yet ported "
                      f"(ROADMAP.md, {_NOT_PORTED_MODES[args.mode]})")
-    for flag in _NOT_PORTED_AXES:
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag}: the pp and ep axes are not yet ported "
-                         "(ROADMAP.md, Queue 1, item 5)")
-    cfg = None
-    if args.preset is not None or args.seq_len is not None or args.remat:
-        from .workload import ModelConfig
-        overrides = dict(PRESETS.get(args.preset or "", {}))
-        if args.seq_len is not None:
-            overrides["seq_len"] = args.seq_len
-        if args.remat:
-            overrides["remat"] = True
-        cfg = ModelConfig(**overrides)
+    if args.gpipe_microbatches:
+        parser.error("--gpipe-microbatches: the GPipe schedule is not yet "
+                     "ported (ROADMAP.md, Queue 1, item 2)")
+    from .workload import ModelConfig
+    overrides = dict(PRESETS.get(args.preset or "", {}))
+    if args.seq_len is not None:
+        overrides["seq_len"] = args.seq_len
+    if args.experts is not None:
+        overrides["n_experts"] = args.experts
+    if args.remat:
+        overrides["remat"] = True
+    cfg = ModelConfig(**overrides)
+    # pp and ep against the model, as the JAX probe checks them, before
+    # any device is touched: a caller's error, never a broken slice
+    if args.pp and args.pp > 1 and cfg.n_layers % args.pp:
+        parser.error(f"--pp {args.pp} does not divide n_layers={cfg.n_layers}")
+    if args.ep and args.ep > 1:
+        if not cfg.n_experts:
+            parser.error(f"--ep {args.ep} needs --experts (dense model has "
+                         "no expert dimension to shard)")
+        if cfg.n_experts % args.ep:
+            parser.error(f"--ep {args.ep} does not divide "
+                         f"--experts {cfg.n_experts}")
     attention = None if args.attention == "auto" else args.attention
     report = validate_slice(cfg=cfg, steps=args.steps, attention=attention,
                             mode=args.mode, device=args.device, tp=args.tp,
-                            sp=args.sp)
+                            sp=args.sp, pp=args.pp, ep=args.ep)
     print(report.to_json())
     if report.invalid_config:
         return 2  # caller error, not a broken card

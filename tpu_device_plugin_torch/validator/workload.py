@@ -1,44 +1,59 @@
 """Transformer burn-in workload in PyTorch: serving and training.
 
 Port of `tpu_device_plugin/validator/workload.py`: embedding, RMSNorm,
-multi-head causal attention, GELU MLP, unembedding, cross-entropy, and SGD
-with momentum, on one device or on a (dp, sp, tp) mesh (mesh.py).
+multi-head causal attention, GELU MLP or top-1 switch MoE, unembedding,
+cross-entropy, and SGD with momentum, on one device or on a
+(pp, dp, sp, ep, tp) mesh (mesh.py).
 
 - Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`,
   stacked on a leading n_layers dim, under `embed`, `unembed` and
-  `layers.{wq,wk,wv,wo,w1,w2}`; weights from the JAX package load with
-  `params_from_jax`.
+  `layers.{wq,wk,wv,wo,w1,w2}` (MoE: `wr,w1e,w2e` for `w1,w2`); weights
+  from the JAX package load with `params_from_jax`.
 - Every matmul runs in bfloat16 (weights are cast at the matmul, as the
   JAX forward does); RMSNorm and the logits are float32; params, grads
   and momentum are float32.
 - Attention is `flash` (the CUDA kernels in csrc/, forward and backward;
   their plain versions on the CPU), `ring` (ring_attention.py, over sp) or
-  `einsum`. MoE and the pp/ep axes come in a later slice (ROADMAP.md,
-  Queue 1, item 5).
+  `einsum`.
+- MoE (`n_experts` > 0) routes each token to its argmax expert by an f32
+  softmax over the router logits, drops tokens past the expert's
+  capacity, and runs the experts as batched matmuls over a (E, capacity,
+  d) buffer that the kept tokens are scattered into and gathered from
+  (`_moe`); `_moe_onehot` is the JAX version's one-hot form of the same
+  function, kept as its plain version.
 - On a mesh, where XLA inserted the collectives from `param_specs`, the
-  port calls them itself (distributed.py): `wq`/`wk`/`wv`/`w1` are
+  port calls them itself (distributed.py): `wq`/`wk`/`wv`/`w1`/`w1e` are
   column-sharded over tp (a column block of `wq` is a block of whole
-  heads), `wo`/`w2` row-sharded and followed by a sum over tp, `embed`
-  sharded on its d columns and gathered, `unembed` row-sharded with the
-  logits summed over tp. The residual stream is replicated over tp and
-  sharded (dp, sp) like the batch. Every leaf is replicated over dp and
-  sp, so its gradient is summed over both. Without a mesh none of these
-  calls is made.
+  heads), `wo`/`w2`/`w2e` row-sharded and followed by a sum over tp,
+  `embed` sharded on its d columns and gathered, `unembed` row-sharded
+  with the logits summed over tp. The residual stream is replicated over
+  tp and ep and sharded (dp, sp) like the batch. Each ep rank runs its own
+  experts on its block's tokens routed to them, and the MoE outputs are
+  summed over ep; routing is global over (dp, sp). The layer stack is cut
+  over pp: each stage runs its layers and passes the residual stream to
+  the next one (`distributed.pipe_send`); the loss is taken on the last.
+  A leaf's gradient is summed over dp and sp, over pp for `embed` and
+  `unembed` (used on the first and last stage only), and over ep for `wr`
+  (each ep rank sees only its experts' gates). Without a mesh none of
+  these calls is made.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .distributed import all_reduce_grads, enter, exit_, gather
+from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
+                          pipe_send, queue_offsets)
 from .mesh import mesh_shape
 
 Params = Dict[str, Any]
@@ -55,9 +70,8 @@ class ModelConfig:
     batch: int = 8
     lr: float = 1e-2
     momentum: float = 0.9
-    # Mixture-of-experts: 0 = dense MLP; >0 is the top-1 switch layer,
-    # which is not ported yet (init_params makes its weights, the forward
-    # refuses it)
+    # Mixture-of-experts: 0 = dense MLP; >0 replaces the MLP with a top-1
+    # switch layer of n_experts experts (weights shardable over "ep")
     n_experts: int = 0
     capacity_factor: float = 1.25
     # recompute each layer's activations in the backward instead of
@@ -128,19 +142,28 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
 
 
 class _Axes:
-    """This rank's place on a (dp, sp, tp) mesh: each axis's process
-    group, size and index."""
+    """This rank's place on the mesh: each axis's process group, size and
+    index. pp and ep, which a mesh holds only when larger than 1, have
+    size 1, index 0 and no group where it lacks them; `stages` are the
+    global ranks of this rank's pp group, first stage first."""
 
     def __init__(self, mesh):
         names = mesh.mesh_dim_names
-        extra = [name for name in names if name not in ("dp", "sp", "tp")]
-        if extra:
-            raise NotImplementedError(
-                f"the {'/'.join(extra)} mesh axes are not yet ported "
-                "(ROADMAP.md, Queue 1, item 5)")
         self.group = {name: mesh.get_group(name) for name in names}
-        self.size = mesh_shape(mesh)
-        self.index = {name: mesh.get_local_rank(name) for name in names}
+        self.size = {"pp": 1, "ep": 1, **mesh_shape(mesh)}
+        self.index = {"pp": 0, "ep": 0,
+                      **{name: mesh.get_local_rank(name) for name in names}}
+        self.stages = (dist.get_process_group_ranks(self.group["pp"])
+                       if "pp" in names else [])
+
+    def last_stage(self) -> bool:
+        return self.index["pp"] == self.size["pp"] - 1
+
+    def routing(self, axis: str):
+        """(group, index) on a batch axis for `queue_offsets`, or None."""
+        if self.size[axis] == 1:
+            return None
+        return self.group[axis], self.index[axis]
 
 
 def _axes(mesh) -> Optional[_Axes]:
@@ -219,6 +242,129 @@ def _mlp(x: torch.Tensor, layer: Params,
     return _row_sharded(hidden, layer["w2"], ax)
 
 
+def _capacity(tokens: int, n_experts: int, factor: float) -> int:
+    """Per-expert capacity over `tokens` tokens, padded to a multiple of 8."""
+    return min(tokens, max(8, math.ceil(
+        math.ceil(tokens * factor / n_experts) / 8) * 8))
+
+
+def _route(xt: torch.Tensor, wr: torch.Tensor):
+    """Top-1 routing of tokens xt (t, d) bf16: each token's argmax expert
+    (the first on ties, as jnp.argmax) and its gate, of the f32 softmax
+    over the router logits. The logits are the f32 products of the bf16
+    operands, not rounded to bf16: jit folds the JAX version's
+    `(xt @ bf16(wr)).astype(f32)` into one dot with f32 output, so its
+    step routes on those (a bf16 rounding there put two logits of one
+    token a bf16 ulp apart and flipped its expert)."""
+    gates = torch.softmax(xt.float() @ _bf16(wr).float(), dim=-1)
+    top1 = gates.argmax(dim=-1)
+    return gates.gather(-1, top1[:, None])[:, 0], top1
+
+
+def _one_hot(index: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 one-hot rows of `index` (F.one_hot's int64, without its
+    range check, which waits for the card)."""
+    return (index[:, None] == torch.arange(n, device=index.device)).int()
+
+
+def _running_count(flags: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum along the last dim, in int32. The scan runs
+    along the innermost dim of a contiguous copy: over an outer dim, with
+    few columns, torch's scan kernel has almost no parallelism (on an
+    H100 the queue places at the mfu width took 3 ms per layer so)."""
+    return flags.contiguous().cumsum(-1, dtype=torch.int32)
+
+
+def _experts(expert_in: torch.Tensor, layer: Params,
+             ax: Optional[_Axes]) -> torch.Tensor:
+    """The experts' tanh-GELU MLPs on their (E, capacity, d) inputs, as
+    batched bf16 matmuls; over tp, w2e's partials are summed in f32 and
+    rounded once (`_row_sharded`)."""
+    hidden = F.gelu(expert_in @ _bf16(layer["w1e"]), approximate="tanh")
+    return _row_sharded(hidden, layer["w2e"], ax)
+
+
+def _moe(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+         ax: Optional[_Axes] = None) -> torch.Tensor:
+    """Top-1 switch MoE on x (b, s, d) bf16.
+
+    The capacity and each token's place in its expert's queue are those of
+    the global batch (b-major), as in the JAX version, which routes the
+    whole batch in one program: on a mesh the per-row counts are gathered
+    over dp and sp (`distributed.queue_offsets`). A token past its
+    expert's capacity is dropped (its output is 0). Each rank runs its ep
+    shard of the experts on its block's kept tokens routed there: they are
+    scattered into an (E_local, slots, d) buffer in token order, the
+    expert outputs gathered back and scaled by the gate, rounded to bf16
+    first (bf16(gate) x output in f32, rounded once: the value of the JAX
+    version's one-hot combine, whose every element is one such product).
+    The outputs are summed over ep, where exactly one rank holds each
+    token's term."""
+    b, s, d = x.shape
+    t = b * s
+    dp, sp, ep = ((1, 1, 1) if ax is None else
+                  (ax.size["dp"], ax.size["sp"], ax.size["ep"]))
+    if ep > 1:
+        # the router and the experts see only this rank's experts' tokens
+        x = enter(x, ax.group["ep"])
+    xt = x.reshape(t, d)
+    gate, top1 = _route(xt, layer["wr"])
+    cap = _capacity(t * dp * sp, cfg.n_experts, cfg.capacity_factor)
+    onehot = _one_hot(top1, cfg.n_experts).view(b, s, -1)
+    offsets = queue_offsets(
+        onehot.sum(1, dtype=torch.int32), *(None, None) if ax is None else
+        (ax.routing("dp"), ax.routing("sp")))
+    place = _running_count(onehot.transpose(1, 2)).transpose(1, 2)
+    place = (place + offsets[:, None]).reshape(t, -1)
+    kept = place.gather(1, top1[:, None])[:, 0] <= cap
+
+    n_local = layer["w1e"].shape[0]
+    local = top1 - (0 if ax is None else ax.index["ep"]) * n_local
+    mine = kept & (local >= 0) & (local < n_local)
+    local = local.clamp(0, n_local - 1)
+    # a slot per token of this rank kept by each local expert, in token
+    # order; a buffer row past the last slot takes every other token
+    slots = min(cap, t)
+    mine_hot = _one_hot(local, n_local) * mine[:, None]
+    slot = _running_count(mine_hot.t()).t()
+    slot = slot.gather(1, local[:, None])[:, 0] - 1
+    row = torch.where(mine, local * slots + slot, n_local * slots)
+    xe = x if ax is None else enter(x, ax.group["tp"])
+    buf = xe.new_zeros(n_local * slots + 1, d).index_copy(
+        0, row, xe.reshape(t, d))
+    expert_out = _experts(buf[:-1].view(n_local, slots, d), layer, ax)
+    picked = expert_out.reshape(-1, d).index_select(
+        0, row.clamp(max=n_local * slots - 1))
+    scale = torch.where(mine, _bf16(gate), 0).float()
+    out = (scale[:, None] * picked.float()).to(torch.bfloat16)
+    if ep > 1:
+        out = exit_(out, ax.group["ep"])
+    return out.view(b, s, d)
+
+
+def _moe_onehot(x: torch.Tensor, layer: Params,
+                cfg: ModelConfig) -> torch.Tensor:
+    """`_moe`'s plain version on one device: the JAX version's one-hot
+    dispatch and combine einsums over (t, E, capacity) tensors, with the
+    same routing and experts. Its cost grows as t^2 d; it serves only to
+    check `_moe`."""
+    b, s, d = x.shape
+    t, e = b * s, cfg.n_experts
+    cap = _capacity(t, e, cfg.capacity_factor)
+    xt = x.reshape(t, d)
+    gate, top1 = _route(xt, layer["wr"])
+    onehot = F.one_hot(top1, e).float()
+    pos = onehot.cumsum(0) * onehot                        # 1-based
+    within = (pos > 0) & (pos <= cap)
+    dispatch = (F.one_hot((pos - 1).long().clamp(0, cap - 1), cap).float()
+                * within[..., None])                       # (t, e, cap)
+    combine = dispatch * gate[:, None, None]
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(torch.bfloat16), xt)
+    expert_out = _experts(expert_in, layer, None)
+    out = torch.einsum("tec,ecd->td", combine.to(torch.bfloat16), expert_out)
+    return out.view(b, s, d)
+
+
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     # bf16 x times an f32 rsqrt promotes to f32, as in the JAX version
@@ -227,19 +373,23 @@ def _rms_norm(x: torch.Tensor) -> torch.Tensor:
 
 def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                 attention: str, ax: Optional[_Axes] = None) -> torch.Tensor:
-    """One transformer block (attention + MLP residuals), dense only."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "the MoE layer is not yet ported (ROADMAP.md, Queue 1, item 5)")
+    """One transformer block (attention + MoE/MLP residuals)."""
     x = x + _attention(_rms_norm(x), layer, cfg, attention, ax)
+    if cfg.n_experts:
+        return x + _moe(_rms_norm(x), layer, cfg, ax)
     return x + _mlp(_rms_norm(x), layer, ax)
 
 
-def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-             attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+           attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+    """The residual stream after this rank's layers: all of them without a
+    pp axis; on a pp stage its own, from the embedding on the first stage
+    and from the stage before on a later one."""
     x = _bf16(params["embed"])[tokens]
     if ax is not None:
         x = gather(x, -1, ax.group["tp"], sum_grads=False)
+        if ax.index["pp"] > 0:
+            x = pipe_recv(x, ax.stages[ax.index["pp"] - 1])
     # unbind, not w[i]: its backward stacks the layers' grads once, where
     # each w[i]'s would fill and add a zero grad of the whole stack
     names = list(params["layers"])
@@ -251,6 +401,12 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                            use_reentrant=False)
         else:
             x = _layer_body(x, layer, cfg, attention, ax)
+    return x
+
+
+def _head(params: Params, x: torch.Tensor,
+          ax: Optional[_Axes]) -> torch.Tensor:
+    """f32 logits from the last layer's residual stream."""
     x = _rms_norm(x)
     if ax is not None:
         # unembed is row-sharded: each rank multiplies its d-slice
@@ -259,10 +415,33 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return _row_sharded(x, params["unembed"], ax).float()
 
 
+def _send_on(x: torch.Tensor, ax: _Axes) -> torch.Tensor:
+    """An earlier pp stage's end: x sent to the next stage; the f32 zero
+    returned receives x's gradient from it in the backward."""
+    return pipe_send(x, ax.stages[ax.index["pp"] + 1])
+
+
+def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+             attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+    x = _stage(params, tokens, cfg, attention, ax)
+    if ax is None or ax.size["pp"] == 1:
+        return _head(params, x, ax)
+    # the logits are replicated over pp, as the JAX version's out_shardings
+    # replicate them: broadcast from the last stage
+    if ax.last_stage():
+        logits = _head(params, x, ax)
+    else:
+        _send_on(x, ax)
+        logits = torch.empty(*tokens.shape, cfg.vocab, device=x.device)
+    dist.broadcast(logits, ax.stages[-1], group=ax.group["pp"])
+    return logits
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attention: str = "einsum", mesh=None) -> torch.Tensor:
     """Logits (batch, seq, vocab) in f32. On a mesh, `params` are this
-    rank's shards and `tokens` its (dp, sp) block; so are the logits."""
+    rank's shards and `tokens` its (dp, sp) block; so are the logits,
+    which every pp stage returns."""
     return _forward(params, tokens, cfg, attention, _axes(mesh))
 
 
@@ -271,12 +450,17 @@ def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
     """This rank's part of the mean next-token cross-entropy over the
     global batch x (seq - 1) positions. `rows` are the rank's token rows,
     whole: the last position of an sp shard predicts the first token of
-    the next; the last global position predicts nothing."""
+    the next; the last global position predicts nothing. On a pp stage
+    before the last, the part is 0: the stage's output goes on to the
+    next stage, and its gradient comes back from there."""
     seq = rows.shape[1]
     sp, dp = (1, 1) if ax is None else (ax.size["sp"], ax.size["dp"])
     width = seq // sp
     start = 0 if ax is None else ax.index["sp"] * width
-    logits = _forward(params, rows[:, start:start + width], cfg, attention, ax)
+    x = _stage(params, rows[:, start:start + width], cfg, attention, ax)
+    if ax is not None and not ax.last_stage():
+        return _send_on(x, ax)
+    logits = _head(params, x, ax)
     targets = rows[:, start + 1:start + width + 1]
     logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
     nll = -torch.gather(logprobs, -1, targets[..., None].long())
@@ -287,7 +471,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attention: str = "einsum", mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy. On a mesh, `tokens` are the rank's
     dp rows over the whole sequence, and the result is this rank's part of
-    the mean (the parts sum to it over dp and sp)."""
+    the mean (the parts sum to it over dp, sp and pp)."""
     return _loss(params, tokens, cfg, attention, _axes(mesh))
 
 
@@ -317,22 +501,48 @@ def _with_leaves(tree: Params, leaves) -> Params:
     return build(tree)
 
 
+def _grad_axes(key: str, spec: Tuple) -> Tuple[str, ...]:
+    """The mesh axes a leaf's gradient is summed over: those on which its
+    rank holds only a partial. Every leaf over the batch axes dp and sp;
+    a leaf that is not cut over pp (embed, unembed: used on the first or
+    the last stage only) over pp; the router `wr`, replicated over ep but
+    reached on each ep rank through its own experts' gates only, over ep.
+    Leaves replicated over ep and computed whole there (attention) are
+    not summed over it."""
+    axes = ("dp", "sp") + (() if "pp" in spec else ("pp",))
+    return axes + (("ep",) if key == "layers.wr" else ())
+
+
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    attention: str = "einsum", mesh=None
                    ) -> Tuple[torch.Tensor, Params]:
     """(loss, grads) with grads a tree of params' structure; the caller's
-    params are not marked as requiring grad. On a mesh the loss and the
-    grads are summed over dp and sp: every rank gets the global loss and
-    the gradient of its shards."""
+    params are not marked as requiring grad. On a mesh the loss is summed
+    over dp, sp and pp and each leaf's gradient over `_grad_axes`: every
+    rank gets the global loss and the gradient of its shards."""
     ax = _axes(mesh)
-    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    named = _named_leaves(params)
+    leaves = [p.detach().requires_grad_() for _, p in named]
     with torch.enable_grad():
         loss = _loss(_with_leaves(params, leaves), tokens, cfg, attention, ax)
-        grads = torch.autograd.grad(loss, leaves)
+        # a pp stage leaves embed or unembed unused: its gradient is 0
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     loss = loss.detach()
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     if ax is not None:
-        groups = (ax.group["dp"], ax.group["sp"])
-        loss, *grads = all_reduce_grads([loss, *grads], groups)
+        present = [name for name in ("dp", "sp", "pp") if name in ax.group]
+        loss, = all_reduce_grads([loss], [ax.group[n] for n in present])
+        buckets: Dict[Tuple[str, ...], List[int]] = {}
+        for i, ((key, _), spec) in enumerate(
+                zip(named, _leaves(param_specs(cfg)))):
+            axes = tuple(a for a in _grad_axes(key, spec) if a in ax.group)
+            buckets.setdefault(axes, []).append(i)
+        for axes, idx in buckets.items():
+            summed = all_reduce_grads([grads[i] for i in idx],
+                                      [ax.group[a] for a in axes])
+            for i, g in zip(idx, summed):
+                grads[i] = g
     return loss, _with_leaves(params, grads)
 
 
@@ -417,9 +627,7 @@ def _resolve(cfg: Optional[ModelConfig], mesh, attention: Optional[str],
     einsum on the card is not measured yet."""
     cfg = cfg or ModelConfig()
     dev = resolve_device(device)
-    sp = 1
-    if mesh is not None:
-        sp = _Axes(mesh).size["sp"]   # refuses the axes not ported
+    sp = 1 if mesh is None else mesh_shape(mesh)["sp"]
     if attention is None:
         if sp > 1:
             attention = "ring"
