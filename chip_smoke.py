@@ -40,13 +40,26 @@ failure:
    and one MoE training step through the kernels against the same step
    through their plain versions, on the same weights, with the route
    agreement of the two;
-7. print one JSON line of kernels, then, last, the device line.
+8. GPipe at the mfu preset: pp 2 as two threads of this process on the
+   one card (`pipeline.ThreadLink`, each stage on its own stream; NCCL
+   refuses two ranks on one card), 4 microbatches: one step's loss and
+   gradients against the non-pipelined step on the same weights (einsum
+   attention on both sides, so no kernel launches), then a few steps whose
+   loss must fall, with the step time differenced as `_train` does;
+9. the benches: `attn_bench.bench_attention` at hb 8 (seq 1024, 2048,
+   4096) and hb 128 (seq 2048), `ring_bench.bench_ring` at seq 4096 over
+   sp 1 (this process) and sp 2 (threads), each counted from 0: the flash
+   side ok in every cell, K1, K2 and K3 launched by every train chain, K1
+   alone by every forward chain;
+10. print one JSON line of kernels (launches by path, the benches' too),
+   then, last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -110,6 +123,14 @@ SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
 # disagreement must be a tie within its layer's largest logit difference.
 MOE_EXPERTS = 4
 MOE_ROUTE_AGREE_MIN = 0.99
+# GPipe at mfu on one card: 2 stages as threads, 4 microbatches of 2 rows.
+# The same model and bars as the dense step (STEP_LOSS_TOL,
+# STEP_GRAD_REL_TOL): only the microbatches' bf16 roundings and the order
+# of the gradient sums differ from the non-pipelined step (the JAX
+# package's own GPipe is within 1.4e-6 in the loss and 0.02% in each
+# leaf's norm of its plain step, tests/test_torch_pipeline.py's config).
+GPIPE_STAGES = 2
+GPIPE_MICRO = 4
 
 
 def _nvidia_smi() -> str:
@@ -117,6 +138,17 @@ def _nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def _memory(torch, phase: str) -> None:
+    """One line of the card's memory as a phase starts (after collecting
+    Python's garbage and emptying the allocator's cache)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps(dict(phase=phase,
+                          allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                          reserved_gb=torch.cuda.memory_reserved() / 1e9)),
+          flush=True)
 
 
 def _cuda_ms(torch, fn, iters: int) -> float:
@@ -822,6 +854,131 @@ def check_mesh_nccl(torch, fa, cfg, dev):
     return line, launches
 
 
+def check_gpipe(torch, fa, cfg, dev) -> dict:
+    """Phase 8: one GPipe step's loss and gradients on two stage threads
+    against the non-pipelined step (einsum attention, same seed), then
+    1 + N + 2N steps timed as `probe._train` times them. The reference
+    step recomputes each layer in its backward (remat, the same loss and
+    gradients to the bit in tests/test_torch_pipeline.py): without it the
+    whole batch's einsum scores, 3.2 GB per layer kept for the backward,
+    would take as much of the card as the two stages together."""
+    from dataclasses import replace
+
+    from tpu_device_plugin_torch.validator import pipeline, workload
+    from tpu_device_plugin_torch.validator.ring_attention import run_on_threads
+    params, tokens = workload._place(cfg, dev, 0)
+    ref_loss, ref = workload.value_and_grad(params, tokens,
+                                            replace(cfg, remat=True), "einsum")
+    ref = dict(workload._named_leaves(ref))
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_stage = cfg.n_layers // GPIPE_STAGES
+    steps = 2
+
+    def stage(link):
+        step, p, m, t = pipeline.build_gpipe(cfg, None, GPIPE_MICRO,
+                                             device=dev, link=link)
+        loss, grads = pipeline.gpipe_value_and_grad(p, t, cfg, None,
+                                                    GPIPE_MICRO, link)
+        rel = {}
+        for key, g in workload._named_leaves(grads):
+            r = ref[key]
+            if key.startswith("layers."):
+                r = r[link.index * per_stage:(link.index + 1) * per_stage]
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"stage {link.index}: non-finite {key}")
+            rel[key] = ((g - r).abs().max() / r.abs().max()).item()
+        del grads
+        loss_start = step(p, m, t)[2].item()
+
+        def run_block(k):
+            t0 = time.monotonic()
+            for _ in range(k):
+                loss_k = step(p, m, t)[2]
+            val = loss_k.item()
+            return time.monotonic() - t0, val
+
+        t_n, _ = run_block(steps)
+        t_2n, loss_end = run_block(2 * steps)
+        diff = t_2n - t_n
+        return dict(loss=loss.item(), grad_rel=rel, loss_start=loss_start,
+                    loss_end=loss_end,
+                    step_time_s=diff / steps if diff > 0
+                    else t_2n / (2 * steps))
+
+    _reset(fa)
+    outs = run_on_threads(GPIPE_STAGES, stage, device=dev,
+                          group=pipeline.ThreadLink(GPIPE_STAGES))
+    launches = dict(fa.launches)
+    rel = {f"stage{i}.{key}": v for i, out in enumerate(outs)
+           for key, v in out["grad_rel"].items()}
+    line = dict(check="GPipe at mfu, pp 2 as threads on one card, vs the "
+                "non-pipelined step (einsum)", stages=GPIPE_STAGES,
+                n_micro=GPIPE_MICRO, loss=outs[0]["loss"],
+                plain_loss=ref_loss.item(),
+                loss_diff=abs(outs[0]["loss"] - ref_loss.item()),
+                stage_losses_equal=len({o["loss"] for o in outs}) == 1,
+                max_grad_rel=max(rel.values()), grad_rel=rel,
+                loss_start=outs[0]["loss_start"], loss_end=outs[0]["loss_end"],
+                steps=1 + 3 * steps, step_time_s=outs[0]["step_time_s"],
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                launches=launches, grad_rel_tol=STEP_GRAD_REL_TOL,
+                loss_tol=STEP_LOSS_TOL)
+    line["ok"] = (line["loss_diff"] <= STEP_LOSS_TOL
+                  and line["max_grad_rel"] <= STEP_GRAD_REL_TOL
+                  and line["stage_losses_equal"]
+                  and line["loss_end"] < line["loss_start"]
+                  and not any(launches.values()))
+    del ref, outs
+    torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
+    if not line["ok"]:
+        raise AssertionError(f"GPipe at mfu failed: {line}")
+    return line
+
+
+def check_benches(torch, fa, dev) -> dict:
+    """Phase 9: each bench counted from 0; the flash side ok in every cell,
+    every train chain through K1, K2 and K3, every forward chain through K1
+    alone. Returns {path: launches}."""
+    from tpu_device_plugin_torch.validator import attn_bench, ring_bench
+    runs = (
+        ("attn_bench", "flash", attn_bench.bench_attention,
+         [dict(seq_lens=(1024, 2048, 4096), hb=8), dict(seq_lens=(2048,),
+                                                       hb=128)]),
+        ("ring_bench", "ring_flash", ring_bench.bench_ring,
+         [dict(seq_lens=(4096,), sp=1), dict(seq_lens=(4096,), sp=2)]),
+    )
+    launches = {}
+    for path, side, bench, calls in runs:
+        _reset(fa)
+        total = dict.fromkeys(fa.launches, 0)
+        for kw in calls:
+            result = bench(iters=3, device=dev, **kw)
+            print(json.dumps(dict(bench=path, **result)), flush=True)
+            if not result[f"{side}_ok"]:
+                raise AssertionError(f"{path} {kw}: the flash side failed")
+            for cell in result["cells"]:
+                fwd = cell[f"{side}_fwd_launches"]
+                train = cell[f"{side}_train_launches"]
+                if not (fwd["flash_fwd"] > 0 and fwd["flash_bwd_dkv"] == 0
+                        and fwd["flash_bwd_dq"] == 0
+                        and all(n > 0 for n in train.values())):
+                    raise AssertionError(
+                        f"{path} {kw} seq {cell['seq']}: launches forward "
+                        f"{fwd}, train {train}")
+                for name in total:
+                    total[name] += fwd[name] + train[name]
+        launches[path] = dict(fa.launches)
+        if launches[path] != total:
+            raise AssertionError(f"{path}: {launches[path]} launched, the "
+                                 f"chains count {total}")
+        torch.cuda.empty_cache()
+    print(json.dumps({"launches": launches}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -854,6 +1011,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. the serving and the training path at the mfu preset, counted
+    _memory(torch, "4")
     cfg = ModelConfig(**PRESETS["mfu"])
     _reset(fa)
     report = validate_slice(cfg=cfg, steps=5, attention="flash", mode="infer",
@@ -917,6 +1075,7 @@ def main() -> int:
 
     # 5. the ring on one card (sp threads, each rank's launches counted
     # from 0), the kernels in its step modes, and the mesh path over NCCL
+    _memory(torch, "5")
     ring_launches, _ = check_ring(torch, fa, dev)
     torch.cuda.empty_cache()
     modes = time_ring_modes(torch, fa, dev)
@@ -924,6 +1083,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. the MoE at the mfu width
+    _memory(torch, "6")
     moe_launches = check_moe(torch, fa, ModelConfig(**PRESETS["mfu"],
                                                     n_experts=MOE_EXPERTS),
                              dev)
@@ -934,10 +1094,21 @@ def main() -> int:
         entry["launches_by_path"]["mesh_nccl_train"] = mesh_launches[kernel]
         for path, counts in moe_launches.items():
             entry["launches_by_path"][path] = counts[kernel]
-        entry["launches"] = sum(entry["launches_by_path"].values())
         entry["ring_modes"] = modes[kernel]
 
-    # 7. results
+    # 8. GPipe at the mfu width, two stage threads on the card
+    _memory(torch, "8")
+    check_gpipe(torch, fa, cfg, dev)
+
+    # 9. the benches, each counted from 0
+    _memory(torch, "9")
+    bench_launches = check_benches(torch, fa, dev)
+    for entry in entries:
+        for path, counts in bench_launches.items():
+            entry["launches_by_path"][path] = counts[entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+    # 10. results
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

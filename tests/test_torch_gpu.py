@@ -164,10 +164,11 @@ def test_grad_goes_through_the_kernels(cuda_device):
 @pytest.mark.gpu
 def test_serving_forward_goes_through_the_kernel(cuda_device):
     cfg = workload.ModelConfig(**SMALL)
-    fwd, params, tokens = workload.build_infer(cfg, device=cuda_device)
+    fwd, params, tokens = workload.build_infer(cfg, attention="flash",
+                                               device=cuda_device)
     before = fa.launches["flash_fwd"]
     logits = fwd(params, tokens)
-    assert fa.launches["flash_fwd"] == before + cfg.n_layers   # auto: flash
+    assert fa.launches["flash_fwd"] == before + cfg.n_layers
     einsum = workload.forward(params, tokens, cfg, "einsum")
     assert logits.shape == (2, 96, 64) and torch.isfinite(logits).all()
     rel = ((logits - einsum).abs().max() / einsum.abs().max()).item()
@@ -179,7 +180,7 @@ def test_serving_forward_goes_through_the_kernel(cuda_device):
 def test_training_step_goes_through_the_kernels(cuda_device, remat):
     cfg = workload.ModelConfig(**SMALL, remat=remat)
     step, params, momentum, tokens = workload.build_workload(
-        cfg, device=cuda_device)
+        cfg, attention="flash", device=cuda_device)
     before = dict(fa.launches)
     losses = [step(params, momentum, tokens)[2].item() for _ in range(3)]
     per_step = {"flash_fwd": cfg.n_layers * (2 if remat else 1),
@@ -280,7 +281,8 @@ def test_moe_paths_go_through_the_kernels(cuda_device, mode):
     cfg = workload.ModelConfig(**SMALL, n_experts=4)
     before = dict(fa.launches)
     if mode == "infer":
-        fwd, params, tokens = workload.build_infer(cfg, device=cuda_device)
+        fwd, params, tokens = workload.build_infer(cfg, attention="flash",
+                                                   device=cuda_device)
         logits = fwd(params, tokens)
         assert torch.isfinite(logits).all()
         per_call = {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
@@ -288,10 +290,90 @@ def test_moe_paths_go_through_the_kernels(cuda_device, mode):
         calls = 1
     else:
         step, params, momentum, tokens = workload.build_workload(
-            cfg, device=cuda_device)
+            cfg, attention="flash", device=cuda_device)
         losses = [step(params, momentum, tokens)[2].item() for _ in range(3)]
         assert losses[-1] < losses[0]
         per_call = dict.fromkeys(fa.launches, cfg.n_layers)
         calls = 3
     for name, n in per_call.items():
         assert fa.launches[name] == before[name] + calls * n, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_gpipe_threads_match_plain_step_on_card(cuda_device, remat):
+    """GPipe with its 2 stages as threads on the card (each on its own
+    stream) against the non-pipelined step on the same weights, einsum
+    attention on both sides: the loss within 1e-3, each leaf's gradient
+    within 3% of its max |g|; no kernel launches; the loss falls."""
+    from tpu_device_plugin_torch.validator import pipeline
+    from tpu_device_plugin_torch.validator.ring_attention import run_on_threads
+    cfg = workload.ModelConfig(**dict(SMALL, batch=4), remat=remat)
+    params, tokens = workload._place(cfg, cuda_device, 0)
+    ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "einsum")
+    ref = dict(workload._named_leaves(ref))
+
+    def stage(link):
+        step, p, m, t = pipeline.build_gpipe(cfg, None, 2, device=cuda_device,
+                                             link=link)
+        loss, grads = pipeline.gpipe_value_and_grad(p, t, cfg, None, 2, link)
+        losses = [step(p, m, t)[2].item() for _ in range(3)]
+        return loss, dict(workload._named_leaves(grads)), losses
+
+    before = dict(fa.launches)
+    outs = run_on_threads(2, stage, device=cuda_device, timeout_s=120,
+                          group=pipeline.ThreadLink(2))
+    assert fa.launches == before
+    for index, (loss, grads, losses) in enumerate(outs):
+        assert abs(loss.item() - ref_loss.item()) < 1e-3
+        assert losses[-1] < losses[0]
+        for key, g in grads.items():
+            r = ref[key]
+            if key.startswith("layers."):
+                r = r[index:index + 1]
+            assert torch.isfinite(g).all() and rel_err(g, r) <= 0.03, key
+
+
+@pytest.mark.gpu
+def test_attn_bench_cells_on_card(cuda_device):
+    """attn-bench on the card: every cell timed, the forward chain through
+    K1 alone, the train chain through K1, K2 and K3."""
+    from tpu_device_plugin_torch.validator.attn_bench import bench_attention
+    result = bench_attention(seq_lens=(256, 384), hb=2, iters=2,
+                             device=cuda_device)
+    assert result["platform"] == "gpu" and result["interpret"] is False
+    assert result["flash_ok"]
+    for cell in result["cells"]:
+        assert cell["error"] == "" and cell["flash_train_ms"] > 0
+        assert cell["einsum_train_ms"] > 0
+        fwd, train = cell["flash_fwd_launches"], cell["flash_train_launches"]
+        assert fwd["flash_fwd"] > 0
+        assert fwd["flash_bwd_dkv"] == fwd["flash_bwd_dq"] == 0
+        assert all(n > 0 for n in train.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [1, 2])
+def test_ring_bench_cells_on_card(cuda_device, sp):
+    """ring-bench on one card: sp 1 in this process, sp 2 as threads."""
+    from tpu_device_plugin_torch.validator.ring_bench import bench_ring
+    result = bench_ring(seq_lens=(512,), sp=sp, hb=2, iters=2,
+                        device=cuda_device)
+    assert result["ring"] == ("processes" if sp == 1 else "threads")
+    assert result["ring_flash_ok"] and result["interpret"] is False
+    cell = result["cells"][0]
+    assert cell["error"] == "" and cell["einsum_ring_train_ms"] > 0
+    assert all(n > 0 for n in cell["ring_flash_train_launches"].values())
+    assert cell["ring_flash_fwd_launches"]["flash_bwd_dkv"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", [96, workload.FLASH_MIN_SEQ])
+def test_auto_attention_on_card_follows_flash_min_seq(cuda_device, seq):
+    """auto: einsum below FLASH_MIN_SEQ (no launch), the kernels from it."""
+    cfg = workload.ModelConfig(**dict(SMALL, seq_len=seq))
+    fwd, params, tokens = workload.build_infer(cfg, device=cuda_device)
+    before = fa.launches["flash_fwd"]
+    assert torch.isfinite(fwd(params, tokens)).all()
+    expected = cfg.n_layers if seq >= workload.FLASH_MIN_SEQ else 0
+    assert fa.launches["flash_fwd"] - before == expected

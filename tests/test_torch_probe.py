@@ -104,9 +104,11 @@ def test_impossible_train_mfu_vetoes(monkeypatch):
 
 
 def test_unported_mode_is_a_config_error():
+    """A bench is no validation: validate_slice names the bench functions
+    (the CLI runs them, tests/test_torch_bench.py)."""
     report = probe.validate_slice(cfg=TINY, mode="attn-bench", device="cpu")
     assert report.invalid_config and not report.ok
-    assert "not yet ported" in report.error
+    assert "bench_attention" in report.error and report.steps == 0
 
 
 def test_missing_cuda_is_reported_not_raised(monkeypatch):
@@ -162,16 +164,19 @@ def test_workload_flops_at_mfu():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "attn-bench"], "item 3"),
-    (["--mode", "ring-bench"], "item 3"),
-    (["--gpipe-microbatches", "2", "--pp", "2"], "item 2"),
+    (["--mode", "attn-bench", "--blocks", "64x64"], "are not compiled"),
+    (["--mode", "ring-bench", "--blocks", "256x256"], "are not compiled"),
+    (["--gpipe-microbatches", "2", "--pp", "2", "--attention", "einsum"],
+     "runs einsum attention"),
 ])
 def test_main_rejects_unported_with_exit_2(argv, match, capsys):
+    """What the port cannot run is refused: tiles that are not compiled
+    (the benches), an attention choice with GPipe (einsum by
+    construction)."""
     with pytest.raises(SystemExit) as exc:
         probe.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and match in err
+    assert match in capsys.readouterr().err
 
 
 # test_validator.py's SMALL configuration
@@ -234,8 +239,8 @@ def test_main_takes_tp_and_sp(argv, rc, capsys):
 
 
 def test_dryrun_multichip_eight_processes(capsys):
-    """Both regimes of the JAX version's dryrun: (dp, sp, tp), then the
-    (pp, ep, tp) MoE; the GPipe regime is named as not ported."""
+    """The three regimes of the JAX version's dryrun: (dp, sp, tp), the
+    (pp, ep, tp) MoE, and the GPipe schedule over pp 2 x dp 4."""
     from tpu_device_plugin_torch.entry import dryrun_multichip
     dryrun_multichip(8)
     lines = capsys.readouterr().out.strip().splitlines()
@@ -244,10 +249,12 @@ def test_dryrun_multichip_eight_processes(capsys):
     assert lines[1].startswith(
         "dryrun_multichip: mesh={'pp': 2, 'dp': 1, 'sp': 1, 'ep': 2, "
         "'tp': 2} loss=")
-    for line in lines[:2]:
+    assert lines[2].startswith(
+        "dryrun_multichip: gpipe mesh={'pp': 2, 'dp': 4, 'sp': 1, 'tp': 1} "
+        "loss=")
+    for line in lines:
         loss = float(line.rsplit("=", 1)[1])
         assert 0 < loss < 10
-    assert "not yet ported" in lines[2] and "item 2" in lines[2]
     assert len(lines) == 3
 
 

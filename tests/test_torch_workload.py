@@ -152,6 +152,55 @@ def test_resolve_modes():
     assert (fwd(params, tokens) - einsum).abs().max() <= 0.02 * einsum.abs().max()
 
 
+@pytest.mark.parametrize("seq,want", [(128, "einsum"), (511, "einsum"),
+                                      (512, "flash"), (2048, "flash")])
+def test_auto_dispatches_on_flash_min_seq_on_cuda(monkeypatch, seq, want):
+    """On CUDA, auto takes the flash kernels from FLASH_MIN_SEQ on and
+    einsum below it; on the CPU einsum at every length; explicit modes
+    are honoured. (No tensor is made: _resolve only names the device.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = tw.ModelConfig(seq_len=seq)
+    assert tw._resolve(cfg, None, None, "cuda")[2] == want
+    assert tw._resolve(cfg, None, None, "cpu")[2] == "einsum"
+    assert tw._resolve(cfg, None, "flash", "cuda")[2] == "flash"
+    assert tw._resolve(cfg, None, "einsum", "cuda")[2] == "einsum"
+
+
+def test_flash_min_seq_is_the_committed_sweeps_crossover():
+    """FLASH_MIN_SEQ is the rule (attn_bench.crossover) applied to the H100
+    sweeps committed under docs/, at hb 8 and hb 128; the mfu preset's
+    seq 2048 takes flash."""
+    import json
+    from pathlib import Path
+
+    from tpu_device_plugin_torch.validator.attn_bench import crossover
+    from tpu_device_plugin_torch.validator.probe import PRESETS
+    doc = json.loads((Path(__file__).resolve().parent.parent / "docs"
+                      / "validator_h100_attn_pr7.json").read_text())
+    assert doc["card"].startswith("NVIDIA H100")
+    assert sorted(s["hb"] for s in doc["sweeps"]) == [8, 128]
+    assert all(s["platform"] == "gpu" and not s["interpret"]
+               for s in doc["sweeps"])
+    assert tw.FLASH_MIN_SEQ == crossover(doc["sweeps"]) == doc["flash_min_seq"]
+    assert PRESETS["mfu"]["seq_len"] >= tw.FLASH_MIN_SEQ
+
+
+def test_crossover_rule():
+    """The shortest length from which flash trains faster at every longer
+    one, in every sweep; an einsum that failed counts for flash."""
+    from tpu_device_plugin_torch.validator.attn_bench import crossover
+
+    def sweep(*cells):
+        return {"cells": [dict(seq=s, flash_train_ms=f, einsum_train_ms=e)
+                          for s, f, e in cells]}
+    a = sweep((256, 2.0, 1.0), (512, 1.0, 2.0), (1024, 1.0, None))
+    b = sweep((256, 1.0, 2.0), (512, 1.0, 2.0), (1024, 3.0, 4.0))
+    assert crossover([a]) == 512 and crossover([b]) == 256
+    assert crossover([a, b]) == 512
+    assert crossover([sweep((256, 1.0, 2.0), (512, 3.0, 2.0))]) is None
+    assert crossover([sweep((256, 1.0, 2.0), (512, None, 2.0))]) is None
+
+
 def test_build_infer_is_seeded():
     cfg = tw.ModelConfig(**SMALL)
     fwd, p1, t1 = tw.build_infer(cfg, seed=3, device="cpu")

@@ -4,7 +4,8 @@
 with example arguments, on CUDA unless the caller passes `device="cpu"`.
 `dryrun_multichip(n)` runs one sharded training step per regime of the
 JAX version on n gloo CPU processes: (dp, sp, tp), then, where n is a
-multiple of 8, (pp, ep, tp) with a top-1 switch MoE.
+multiple of 8, (pp, ep, tp) with a top-1 switch MoE, and the GPipe
+schedule over pp x dp.
 """
 
 from __future__ import annotations
@@ -27,17 +28,23 @@ def entry(device=None):
 
 
 def _dryrun_rank(rank, _mesh, regimes):
-    """One training step per (slice_mesh keywords, config) regime; the
-    mesh's shape and the loss of each."""
+    """One training step per (slice_mesh keywords, config, GPipe
+    microbatches) regime, the GPipe schedule where the microbatches are
+    not 0; the mesh's shape and the loss of each."""
     import torch.distributed as dist
 
     from .validator.mesh import mesh_shape, slice_mesh
+    from .validator.pipeline import build_gpipe
     from .validator.workload import build_workload
     out = []
-    for mesh_kw, cfg in regimes:
+    for mesh_kw, cfg, n_micro in regimes:
         mesh = slice_mesh(dist.get_world_size(), device_type="cpu", **mesh_kw)
-        step, params, momentum, tokens = build_workload(cfg, mesh,
-                                                        device="cpu")
+        if n_micro:
+            step, params, momentum, tokens = build_gpipe(cfg, mesh, n_micro,
+                                                         device="cpu")
+        else:
+            step, params, momentum, tokens = build_workload(cfg, mesh,
+                                                            device="cpu")
         _, _, loss = step(params, momentum, tokens)
         out.append((mesh_shape(mesh), loss.item()))
     return out
@@ -48,9 +55,9 @@ def dryrun_multichip(n_devices: int) -> None:
     processes, as the JAX version: (dp, sp, tp) with tp up to 4, sp 2
     where it divides and ring attention over it; then, where n is a
     multiple of 8, pp 2 x ep 2 x tp 2 with a 4-expert MoE (stage-cut
-    layers, experts over ep). Prints rank 0's `dryrun_multichip: mesh={...}
-    loss=...` per regime. The JAX version's third regime, the GPipe
-    schedule, is not ported yet (ROADMAP.md, Queue 1, item 2)."""
+    layers, experts over ep), and the GPipe schedule on pp 2 x dp n/2 with
+    2 microbatches. Prints rank 0's `dryrun_multichip: mesh={...}
+    loss=...` per regime (`gpipe mesh=` for the third)."""
     from .validator.distributed import spawn
     from .validator.mesh import mesh_dims
     from .validator.workload import ModelConfig
@@ -61,15 +68,18 @@ def dryrun_multichip(n_devices: int) -> None:
     sp = 2 if n_devices % (tp * 2) == 0 and n_devices // tp >= 2 else 1
     dp = dict(mesh_dims(n_devices, tp=tp, sp=sp))["dp"]
     regimes = [(dict(tp=tp, sp=sp),
-                ModelConfig(seq_len=64, batch=max(4, dp * 2), n_layers=2))]
+                ModelConfig(seq_len=64, batch=max(4, dp * 2), n_layers=2), 0)]
     if n_devices % 8 == 0:
         moe = dict(pp=2, ep=2, tp=2, sp=1)
         dp2 = dict(mesh_dims(n_devices, **moe))["dp"]
         regimes.append((moe, ModelConfig(seq_len=64, batch=max(4, dp2 * 2),
-                                         n_layers=2, n_experts=4)))
-    for shape, loss in spawn(_dryrun_rank, n_devices, "cpu", timeout_s=600,
-                             args=(regimes,))[0]:
-        print(f"dryrun_multichip: mesh={shape} loss={loss:.4f}")
-    if n_devices % 8 == 0:
-        print("dryrun_multichip: the GPipe regime is not yet ported "
-              "(ROADMAP.md, Queue 1, item 2)")
+                                         n_layers=2, n_experts=4), 0))
+        gpipe = dict(pp=2, tp=1, sp=1)
+        dp3 = dict(mesh_dims(n_devices, **gpipe))["dp"]
+        regimes.append((gpipe, ModelConfig(seq_len=64, batch=dp3 * 4,
+                                           n_layers=2), 2))
+    for (_, _, n_micro), (shape, loss) in zip(
+            regimes, spawn(_dryrun_rank, n_devices, "cpu", timeout_s=600,
+                           args=(regimes,))[0]):
+        kind = "gpipe " if n_micro else ""
+        print(f"dryrun_multichip: {kind}mesh={shape} loss={loss:.4f}")

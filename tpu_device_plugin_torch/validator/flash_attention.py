@@ -39,6 +39,13 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # K1's key tile (TC_BK in csrc/flash_fwd.cu); the plain forward rounds P
 # over key blocks of this size, as K1 does
 KEY_BLOCK = 128
+# The bf16 (tensor-core) kernels' compile-time tiles as (block_q, block_k),
+# the only ones the benches can select: K1 runs 128-query blocks over
+# 128-key tiles; in the JAX kernels' naming of one backward pair, K3 holds
+# 128 queries per block and K2 128 keys per block (each streams the other
+# side in tiles of 64: TC_BQ and DQ_BK in csrc/flash_bwd.cu).
+FWD_BLOCK = (128, KEY_BLOCK)
+BWD_BLOCK = (128, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # CUDA kernel launches per kernel since import (or since the caller last

@@ -8,10 +8,12 @@ a matmul/memory microbench checked against the card's datasheet peak. The
 model is dense or a top-1 switch MoE (`--experts`). With more than one
 device (every visible card by default) the step runs on a
 (pp, dp, sp, ep, tp) mesh, one process per card (`--pp`, `--tp`, `--sp`,
-`--ep`). Exit code is non-zero when the slice is unusable, so a VMI
-startup probe can gate workload admission on it; 2 marks the caller's
-configuration. GPipe and the benches are later slices (ROADMAP.md,
-Queue 1).
+`--ep`), or with the GPipe schedule over pp x dp
+(`--gpipe-microbatches`, pipeline.py). `--mode attn-bench` and
+`--mode ring-bench` time the flash kernels against einsum attention
+(attn_bench.py, ring_bench.py) and print one JSON line. Exit code is
+non-zero when the slice is unusable, so a VMI startup probe can gate
+workload admission on it; 2 marks the caller's configuration.
 """
 
 from __future__ import annotations
@@ -154,7 +156,8 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                    mode: str = "train", device=None, tp: Optional[int] = None,
                    sp: Optional[int] = None, n_devices: Optional[int] = None,
                    pp: Optional[int] = None,
-                   ep: Optional[int] = None) -> SliceReport:
+                   ep: Optional[int] = None,
+                   gpipe_microbatches: int = 0) -> SliceReport:
     """Validation of a slice: training steps (`mode="train"`) or serving
     forwards (`mode="infer"`) on `device` (CUDA by default).
 
@@ -164,12 +167,19 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
     mesh. With more, one process per device runs the mesh (gloo processes
     on the CPU): rank 0 fills the report, `ok` is every rank's verdict
     ANDed, and the microbench runs on rank 0's card. `mesh_shape` lists
-    the mesh's axes (pp and ep where they are larger than 1)."""
+    the mesh's axes (pp and ep where they are larger than 1).
+
+    With `gpipe_microbatches` > 0, training runs the GPipe schedule over
+    that many microbatches (`pipeline.build_gpipe`, einsum attention) on
+    a pp x dp mesh; a configuration it cannot run (a local batch that
+    does not divide, no pp axis, sp, tp or ep > 1) is `invalid_config`."""
     report = SliceReport(ok=False)
     if mode not in ("train", "infer"):
         report.invalid_config = True
-        report.error = (f"mode {mode!r} is not yet ported (ROADMAP.md, "
-                        "Queue 1); 'train' and 'infer' run")
+        report.error = (f"mode {mode!r} is not a validation: 'train' or "
+                        "'infer'; the benches are attn_bench.bench_attention "
+                        "and ring_bench.bench_ring (--mode attn-bench, "
+                        "--mode ring-bench)")
         return report
     try:
         from .mesh import mesh_dims
@@ -190,11 +200,31 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
         dims = dict(mesh_dims(n_devices, tp, sp, pp, ep))
         cfg = cfg or ModelConfig()
         steps = max(steps, 1)
+        gpipe = gpipe_microbatches if mode == "train" else 0
+        if gpipe:
+            # checks that need the mesh (hence dp, hence the local batch):
+            # the caller's configuration, never a broken-slice verdict
+            from .pipeline import check_gpipe
+            dp = dims["dp"]
+            if cfg.batch % dp or (cfg.batch // dp) % gpipe:
+                report.invalid_config = True
+                report.error = (
+                    f"invalid configuration: batch {cfg.batch} over "
+                    f"dp={dp} gives local batch {cfg.batch // dp}, not "
+                    f"divisible by --gpipe-microbatches {gpipe}")
+                return report
+            try:
+                check_gpipe(cfg, dims, gpipe, cfg.batch // dp)
+            except ValueError as exc:
+                report.invalid_config = True
+                report.error = f"invalid configuration: {exc}"
+                return report
         if n_devices > 1:
             from .distributed import spawn
             report.mesh_shape = dims
             ranks = spawn(_validate_rank, n_devices, dev.type, MESH_TIMEOUT_S,
-                          args=(cfg, steps, attention, mode, _PROCESS_START),
+                          args=(cfg, steps, attention, mode, _PROCESS_START,
+                                gpipe),
                           mesh=dict(tp=dims["tp"], sp=dims["sp"], pp=pp,
                                     ep=ep))
             kept = ("platform", "n_devices", "device_kinds", "mesh_shape",
@@ -203,7 +233,7 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                 if key not in kept:
                     setattr(report, key, value)
             return report
-        _run(report, cfg, steps, attention, mode, dev)
+        _run(report, cfg, steps, attention, mode, dev, gpipe=gpipe)
         _check_card(report, dev)
     except Exception as exc:  # report, don't crash the probe harness
         report.error = f"{type(exc).__name__}: {exc}"
@@ -211,15 +241,15 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
 
 
 def _run(report: SliceReport, cfg, steps: int, attention, mode: str, dev,
-         mesh=None) -> None:
+         mesh=None, gpipe: int = 0) -> None:
     if mode == "infer":
         _serve(report, cfg, steps, attention, dev, mesh)
     else:
-        _train(report, cfg, steps, attention, dev, mesh)
+        _train(report, cfg, steps, attention, dev, mesh, gpipe)
 
 
 def _validate_rank(rank: int, mesh, cfg, steps: int, attention, mode: str,
-                   process_start: float) -> Optional[dict]:
+                   process_start: float, gpipe: int = 0) -> Optional[dict]:
     """One rank of a validation over a mesh (run by `distributed.spawn`):
     its part of the steps or forwards, then the verdict ANDed over every
     rank; rank 0 also runs the microbench and returns its report."""
@@ -229,7 +259,7 @@ def _validate_rank(rank: int, mesh, cfg, steps: int, attention, mode: str,
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device("cpu"))
     report = SliceReport(ok=False, n_devices=dist.get_world_size())
-    _run(report, cfg, steps, attention, mode, dev, mesh)
+    _run(report, cfg, steps, attention, mode, dev, mesh, gpipe)
     verdict = torch.tensor([int(report.ok)], device=dev)
     dist.all_reduce(verdict, op=dist.ReduceOp.MIN)
     if report.ok and not verdict.item():
@@ -331,15 +361,21 @@ def _serve(report: SliceReport, cfg, steps: int, attention, dev,
 
 
 def _train(report: SliceReport, cfg, steps: int, attention, dev,
-           mesh=None) -> None:
+           mesh=None, gpipe: int = 0) -> None:
     """Training path: the first step gives `loss_start`; blocks of N and 2N
     steps, each synced by fetching the loss, give the differenced step time
     (the fixed per-fetch cost cancels); ok iff the loss fell. The model
-    TFLOP/s are divided over the report's `n_devices`."""
-    from .workload import build_workload
-    step, params, momentum, tokens = build_workload(cfg, mesh,
-                                                    attention=attention,
-                                                    device=dev)
+    TFLOP/s are divided over the report's `n_devices`. With `gpipe`
+    microbatches the step is the GPipe schedule's (einsum attention, as
+    in the JAX probe, whatever `attention` says)."""
+    if gpipe:
+        from .pipeline import build_gpipe
+        step, params, momentum, tokens = build_gpipe(cfg, mesh, gpipe,
+                                                     device=dev)
+    else:
+        from .workload import build_workload
+        step, params, momentum, tokens = build_workload(
+            cfg, mesh, attention=attention, device=dev)
 
     def run_step():
         report.steps += 1
@@ -384,12 +420,61 @@ PRESETS = {
                      seq_len=2048, batch=8),
 }
 
-# what the CLI refuses until its slice lands, and the ROADMAP.md item that
-# brings it
-_NOT_PORTED_MODES = {
-    "attn-bench": "Queue 1, item 3 (benches)",
-    "ring-bench": "Queue 1, item 3 (benches)",
-}
+
+def _tiles(parser, text: str, flag: str):
+    """(block_q, block_k) pairs of a comma-separated 'QxK' list; each must
+    be a compiled tile (the kernels' tiles are compile-time constants),
+    else the CLI exits 2 before any device is touched."""
+    from .attn_bench import check_tiles
+    from .flash_attention import BWD_BLOCK, FWD_BLOCK
+    try:
+        tiles = tuple(tuple(int(x) for x in b.split("x"))
+                      for b in text.split(",") if b)
+    except ValueError:
+        tiles = None
+    if tiles is None or any(len(t) != 2 for t in tiles):
+        compiled = FWD_BLOCK if flag == "--blocks" else BWD_BLOCK
+        parser.error(f"{flag}: {text!r} is not a list of QxK tiles; the "
+                     f"compiled one is {compiled[0]}x{compiled[1]}")
+    try:
+        if flag == "--blocks":
+            check_tiles(tiles)
+        else:
+            check_tiles((), tiles)
+    except ValueError as exc:
+        parser.error(f"{flag}: {exc}")
+    return tiles
+
+
+def _bench(args, parser) -> int:
+    """--mode attn-bench / ring-bench: one JSON line, sorted keys; exit 0
+    iff the flash side ran in every cell, 1 on a failure (reported as a
+    JSON error line)."""
+    if args.gpipe_microbatches:
+        parser.error("--gpipe-microbatches only applies to --mode train")
+    seqs = tuple(int(s) for s in args.seqs.split(",") if s)
+    blocks = _tiles(parser, args.blocks, "--blocks")
+    bwd = _tiles(parser, args.bwd_blocks, "--bwd-blocks") or (None,)
+    try:
+        if args.mode == "ring-bench":
+            from .ring_bench import bench_ring
+            result = bench_ring(seq_lens=seqs, blocks=blocks, sp=args.sp,
+                                hb=args.hb, iters=args.steps,
+                                repeats=args.repeats, device=args.device)
+            ok = result["ring_flash_ok"]
+        else:
+            from .attn_bench import bench_attention
+            result = bench_attention(seq_lens=seqs, blocks=blocks,
+                                     iters=args.steps, hb=args.hb,
+                                     bwd_blocks=bwd, repeats=args.repeats,
+                                     device=args.device)
+            ok = result["flash_ok"]
+    except Exception as exc:  # report, don't crash the probe harness
+        print(json.dumps({"ok": False,
+                          "error": f"{type(exc).__name__}: {exc}"}))
+        return 1
+    print(json.dumps({"ok": ok, **result}, sort_keys=True))
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -399,12 +484,30 @@ def main(argv=None) -> int:
         description="Validate a passed-through NVIDIA card from inside the "
                     "guest.")
     parser.add_argument("--steps", type=int, default=20)
-    parser.add_argument("--mode", choices=["train", "infer", *_NOT_PORTED_MODES],
+    parser.add_argument("--mode",
+                        choices=["train", "infer", "attn-bench", "ring-bench"],
                         default="train",
                         help="train = SGD steps (step time, TFLOP/s, MFU, "
                              "loss must fall); infer = forward-only serving "
-                             "latency percentiles (p50/p99, tokens/s); the "
-                             "benches are not ported yet")
+                             "latency percentiles (p50/p99, tokens/s); "
+                             "attn-bench = flash kernels vs einsum attention "
+                             "on one card; ring-bench = flash ring vs einsum "
+                             "ring over --sp ranks (--seqs GLOBAL lengths)")
+    parser.add_argument("--seqs", default="1024,2048,4096",
+                        help="bench sequence lengths, comma-separated")
+    parser.add_argument("--blocks", default="128x128",
+                        help="bench forward tiles; only the compiled K1 "
+                             "tile, 128x128, exists")
+    parser.add_argument("--bwd-blocks", default="",
+                        help="attn-bench backward tiles; empty = the "
+                             "compiled ones (128x128: K3's query blocks x "
+                             "K2's key blocks), the only ones that exist")
+    parser.add_argument("--hb", type=int, default=8,
+                        help="bench heads*batch (folded leading dim)")
+    parser.add_argument("--repeats", type=int, default=1,
+                        help="bench: chain this many dependent evaluations "
+                             "(scaled by (4096/seq)^2, 8192 for the ring) "
+                             "and difference R against 2R")
     parser.add_argument("--preset", choices=sorted(PRESETS), default=None,
                         help="named model size: burnin = tiny defaults, "
                              "mfu = d_model 2048, seq 2048, 8 layers, "
@@ -418,7 +521,9 @@ def main(argv=None) -> int:
                         choices=["auto", "flash", "ring", "einsum"],
                         default="auto",
                         help="auto = ring when sp > 1, else the CUDA flash "
-                             "kernels on the card and einsum on the CPU")
+                             "kernels on the card from seq FLASH_MIN_SEQ "
+                             "(workload.py) and einsum below it and on the "
+                             "CPU")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--tp", type=int, default=None,
                         help="tensor-parallel size (heads and ffn), over "
@@ -435,14 +540,12 @@ def main(argv=None) -> int:
                         help="replace the MLP with a top-1 switch MoE of "
                              "this many experts")
     parser.add_argument("--gpipe-microbatches", type=int, default=0,
-                        help="the GPipe schedule: not ported yet")
+                        help="train with the GPipe schedule (pipeline.py) "
+                             "over this many microbatches; needs --pp > 1 "
+                             "and tp == sp == ep == 1")
     args = parser.parse_args(argv)
-    if args.mode in _NOT_PORTED_MODES:
-        parser.error(f"--mode {args.mode} is not yet ported "
-                     f"(ROADMAP.md, {_NOT_PORTED_MODES[args.mode]})")
-    if args.gpipe_microbatches:
-        parser.error("--gpipe-microbatches: the GPipe schedule is not yet "
-                     "ported (ROADMAP.md, Queue 1, item 2)")
+    if args.mode in ("attn-bench", "ring-bench"):
+        return _bench(args, parser)
     from .workload import ModelConfig
     overrides = dict(PRESETS.get(args.preset or "", {}))
     if args.seq_len is not None:
@@ -463,10 +566,24 @@ def main(argv=None) -> int:
         if cfg.n_experts % args.ep:
             parser.error(f"--ep {args.ep} does not divide "
                          f"--experts {cfg.n_experts}")
+    if args.gpipe_microbatches:
+        if args.mode != "train":
+            parser.error("--gpipe-microbatches only applies to --mode train")
+        if (args.pp or 0) < 2:
+            parser.error("--gpipe-microbatches needs --pp >= 2")
+        if (args.tp or 1) != 1 or (args.sp or 1) != 1 or (args.ep or 1) != 1:
+            parser.error("--gpipe-microbatches needs tp == sp == ep == 1")
+        if args.attention != "auto":
+            parser.error("the GPipe schedule runs einsum attention; "
+                         "drop --attention")
+        if cfg.batch % args.gpipe_microbatches:
+            parser.error(f"batch {cfg.batch} not divisible by "
+                         f"--gpipe-microbatches {args.gpipe_microbatches}")
     attention = None if args.attention == "auto" else args.attention
     report = validate_slice(cfg=cfg, steps=args.steps, attention=attention,
                             mode=args.mode, device=args.device, tp=args.tp,
-                            sp=args.sp, pp=args.pp, ep=args.ep)
+                            sp=args.sp, pp=args.pp, ep=args.ep,
+                            gpipe_microbatches=args.gpipe_microbatches)
     print(report.to_json())
     if report.invalid_config:
         return 2  # caller error, not a broken card

@@ -122,12 +122,14 @@ class _ThreadRingMember:
 
 
 def run_on_threads(size: int, fn: Callable, device=None,
-                   timeout_s: float = 300.0) -> list:
-    """`fn(ring)` for each member of a `ThreadRing(size)`, each in its own
-    thread (on CUDA, on its own stream of `device`, which first waits for
-    the caller's stream and is synchronised before the thread ends);
-    returns the results in ring order and re-raises the first exception."""
-    ring = ThreadRing(size, timeout_s)
+                   timeout_s: float = 300.0, group=None) -> list:
+    """`fn(member)` for each member of `group` (by default a new
+    `ThreadRing(size)`; `pipeline.ThreadLink` is the other kind), each in
+    its own thread (on CUDA, on its own stream of `device`, which first
+    waits for the caller's stream and is synchronised before the thread
+    ends); returns the results in member order and re-raises the first
+    exception. A thread that fails aborts the group."""
+    ring = ThreadRing(size, timeout_s) if group is None else group
     results: list = [None] * size
     errors: List[BaseException] = []
     on_cuda = device is not None and torch.device(device).type == "cuda"

@@ -390,11 +390,17 @@ def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x = gather(x, -1, ax.group["tp"], sum_grads=False)
         if ax.index["pp"] > 0:
             x = pipe_recv(x, ax.stages[ax.index["pp"] - 1])
+    return _layers(x, params["layers"], cfg, attention, ax)
+
+
+def _layers(x: torch.Tensor, layers: Params, cfg: ModelConfig,
+            attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+    """x through each layer of the stacked `layers`, in order; under
+    `cfg.remat` each layer is recomputed in the backward."""
     # unbind, not w[i]: its backward stacks the layers' grads once, where
     # each w[i]'s would fill and add a zero grad of the whole stack
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][name].unbind(0) for name in names))
-    for weights in per_layer:
+    names = list(layers)
+    for weights in zip(*(layers[name].unbind(0) for name in names)):
         layer = dict(zip(names, weights))
         if cfg.remat:
             x = checkpoint(_layer_body, x, layer, cfg, attention, ax,
@@ -460,11 +466,18 @@ def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
     x = _stage(params, rows[:, start:start + width], cfg, attention, ax)
     if ax is not None and not ax.last_stage():
         return _send_on(x, ax)
-    logits = _head(params, x, ax)
     targets = rows[:, start + 1:start + width + 1]
+    return _nll_sum(params, x, targets, ax) / (rows.shape[0] * dp * (seq - 1))
+
+
+def _nll_sum(params: Params, x: torch.Tensor, targets: torch.Tensor,
+             ax: Optional[_Axes]) -> torch.Tensor:
+    """The summed next-token NLL of the last layer's residual stream x
+    against `targets`, which may be one position shorter than x (the last
+    global position predicts nothing)."""
+    logits = _head(params, x, ax)
     logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
-    nll = -torch.gather(logprobs, -1, targets[..., None].long())
-    return nll.sum() / (rows.shape[0] * dp * (seq - 1))
+    return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -555,11 +568,17 @@ def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
     in place (the JAX version donates them) and returned with the loss,
     which is the loss before the update."""
     loss, grads = value_and_grad(params, tokens, cfg, attention, mesh)
+    _sgd_update(params, momentum, grads, cfg.momentum, cfg.lr)
+    return params, momentum, loss
+
+
+def _sgd_update(params: Params, momentum: Params, grads: Params,
+                beta: float, lr: float) -> None:
+    """m <- beta * m + g, p <- p - lr * m, in place."""
     with torch.no_grad():
         for p, m, g in zip(_leaves(params), _leaves(momentum), _leaves(grads)):
-            m.mul_(cfg.momentum).add_(g)
-            p.sub_(m, alpha=cfg.lr)
-    return params, momentum, loss
+            m.mul_(beta).add_(g)
+            p.sub_(m, alpha=lr)
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -618,21 +637,36 @@ def _token_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
     return tokens.chunk(dp, 0)[mesh.get_local_rank("dp")].contiguous()
 
 
+# From this sequence length on, `auto` attention takes the flash kernels on
+# CUDA: the shortest swept length from which the kernels' training time
+# (K1 forward with lse, K2 + K3 backward) beats einsum attention's at every
+# longer swept length, at hb 8 and at hb 128 (batch 8 x 16 heads, the mfu
+# preset's), head_dim 128, bf16, causal; `attn_bench.crossover` applied to
+# docs/validator_h100_attn_pr7.json (one H100 80GB HBM3 at 700 W). Train
+# ms, flash / einsum, hb 8: 1.94 / 2.34 at 256, 1.53 / 2.65 at 512, 1.37 /
+# 2.10 at 2048; hb 128: 1.597 / 1.594 at 256 (einsum ahead), 1.43 / 2.25
+# at 512, 4.25 / 20.95 at 2048, 44.3 / out of memory at 8192. Below it the
+# eager call's launches, not the arithmetic, set both times. The JAX
+# package's 2048 is a TPU sweep's; explicit "flash" is always honoured.
+FLASH_MIN_SEQ = 512
+
+
 def _resolve(cfg: Optional[ModelConfig], mesh, attention: Optional[str],
              device):
     """Config, device and attention mode for a build.
 
     None auto-selects ring attention when sp > 1, else the flash kernels on
-    CUDA and einsum on the CPU; the seq-length crossover between flash and
-    einsum on the card is not measured yet."""
+    CUDA from `FLASH_MIN_SEQ` on, and einsum below it and on the CPU."""
     cfg = cfg or ModelConfig()
     dev = resolve_device(device)
     sp = 1 if mesh is None else mesh_shape(mesh)["sp"]
     if attention is None:
         if sp > 1:
             attention = "ring"
+        elif dev.type == "cuda" and cfg.seq_len >= FLASH_MIN_SEQ:
+            attention = "flash"
         else:
-            attention = "flash" if dev.type == "cuda" else "einsum"
+            attention = "einsum"
     if attention == "flash" and sp != 1:
         raise ValueError("flash attention requires sp == 1 (full local sequence)")
     if attention not in ("flash", "ring", "einsum"):
