@@ -51,8 +51,18 @@ failure:
    sp 1 (this process) and sp 2 (threads), each counted from 0: the flash
    side ok in every cell, K1, K2 and K3 launched by every train chain, K1
    alone by every forward chain;
-10. print one JSON line of kernels (launches by path, the benches' too),
-   then, last, the device line.
+10. the multi-process slice as a guest runs it: the CLI (`python -m
+   tpu_device_plugin_torch.validator --preset mfu`) in subprocesses, joined
+   as the one process of a world (`--coordinator 127.0.0.1:PORT
+   --num-processes 1 --process-id 0`; NCCL refuses two ranks on one card,
+   so the world has one guest), its rank a fresh process on the card:
+   training must be ok with loss_start bit for bit phase 4's and K1, K2
+   and K3 launched n_layers times per step in that process; serving ok
+   with K1 alone; the joined training's rendezvous_s, first_step_s and
+   step_time_s beside phase 4's; and a coordinator nobody serves (`--init-timeout 5`): a JSON report
+   with `ok` false and `error` "distributed init: ...", exit 1, in time;
+11. print one JSON line of kernels (launches by path, the benches' and the
+   multi-process runs' too), then, last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -61,6 +71,8 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -131,6 +143,13 @@ MOE_ROUTE_AGREE_MIN = 0.99
 # leaf's norm of its plain step, tests/test_torch_pipeline.py's config).
 GPIPE_STAGES = 2
 GPIPE_MICRO = 4
+# Phase 10: the CLI's --steps for training and serving (phase 4's), and a
+# coordinator nobody serves: the join must give up after INIT_TIMEOUT_S and
+# the CLI exit within INIT_TIMEOUT_S + INIT_SLACK_S (its own start, torch's
+# import and the card's enumeration included)
+MP_STEPS = {"train": 3, "infer": 5}
+INIT_TIMEOUT_S = 5
+INIT_SLACK_S = 30
 
 
 def _nvidia_smi() -> str:
@@ -141,11 +160,15 @@ def _nvidia_smi() -> str:
 
 
 def _memory(torch, phase: str) -> None:
-    """One line of the card's memory as a phase starts (after collecting
-    Python's garbage and emptying the allocator's cache)."""
-    gc.collect()
+    """One line of the card's memory as a phase starts: allocated before
+    and after collecting Python's garbage (what only a collection frees is
+    held by reference cycles), and reserved after emptying the
+    allocator's cache."""
+    before = torch.cuda.memory_allocated()
+    unreachable = gc.collect()
     torch.cuda.empty_cache()
-    print(json.dumps(dict(phase=phase,
+    print(json.dumps(dict(phase=phase, allocated_gb_before_gc=before / 1e9,
+                          unreachable_objects=unreachable,
                           allocated_gb=torch.cuda.memory_allocated() / 1e9,
                           reserved_gb=torch.cuda.memory_reserved() / 1e9)),
           flush=True)
@@ -979,6 +1002,104 @@ def check_benches(torch, fa, dev) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli(argv, timeout_s: float):
+    """The port's CLI in a subprocess from the repository root: (exit
+    code, its last stdout line as JSON or None, seconds, stderr's end)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_device_plugin_torch.validator", *argv],
+        cwd=root, capture_output=True, text=True, timeout=timeout_s)
+    took = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        last = None
+    return proc.returncode, last, took, proc.stderr[-3000:]
+
+
+def check_multiprocess(torch, fa, cfg, train_report) -> dict:
+    """Phase 10: the CLI at mfu joined as a world of one (training, then
+    serving), and a coordinator nobody serves. `train_report` is phase 4's
+    training report. Returns {path: launches}, the counts each run's rank
+    reported."""
+    launches, runs = {}, {}
+    for label, mode in (("multiprocess_train", "train"),
+                        ("multiprocess_infer", "infer")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = ["--preset", "mfu", "--mode", mode,
+                "--steps", str(MP_STEPS[mode]),
+                "--coordinator", f"127.0.0.1:{_free_port()}",
+                "--num-processes", "1", "--process-id", "0"]
+        # the counts come from the process that ran the steps (a fresh
+        # one: they start at 0), over the steps or forwards alone
+        rc, report, took, err = _cli(argv, 600)
+        if rc != 0 or report is None or not report["ok"]:
+            raise AssertionError(f"{label}: exit {rc}, report {report}, "
+                                 f"stderr {err}")
+        if mode == "train":
+            expected = dict.fromkeys(fa.launches,
+                                     cfg.n_layers * report["steps"])
+            if not report["loss_end"] < report["loss_start"]:
+                raise AssertionError(f"{label}: the loss did not fall")
+            if report["loss_start"] != train_report.loss_start:
+                raise AssertionError(
+                    f"{label}: loss_start {report['loss_start']!r}, phase 4 "
+                    f"{train_report.loss_start!r}")
+        else:
+            expected = {"flash_fwd": cfg.n_layers * report["forwards"],
+                        "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+        work = report["steps"] + report["forwards"]
+        if work <= 0 or report["launches"] != expected:
+            raise AssertionError(f"{label}: launches {report['launches']}, "
+                                 f"expected {expected}")
+        if (report["n_devices"] != 1
+                or report["mesh_shape"] != {"dp": 1, "sp": 1, "tp": 1}):
+            raise AssertionError(f"{label}: n_devices {report['n_devices']}"
+                                 f", mesh {report['mesh_shape']}")
+        launches[label] = report["launches"]
+        runs[label] = report
+        print(json.dumps(dict(
+            check=f"{label}: the CLI at mfu, joined as a world of one",
+            wall_s=took, **{k: report[k] for k in (
+                "ok", "n_devices", "mesh_shape", "rendezvous_s",
+                "devices_visible_s", "first_step_s", "step_time_s",
+                "loss_start", "loss_end", "infer_p50_ms", "steps",
+                "forwards", "launches")})), flush=True)
+
+    rc, report, took, err = _cli(
+        ["--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes",
+         "2", "--process-id", "1", "--init-timeout", str(INIT_TIMEOUT_S)],
+        INIT_TIMEOUT_S + INIT_SLACK_S + 30)
+    line = dict(check="unreachable coordinator: a JSON report, exit 1",
+                rc=rc, wall_s=took, limit_s=INIT_TIMEOUT_S + INIT_SLACK_S,
+                report=report)
+    line["ok"] = (rc == 1 and took <= INIT_TIMEOUT_S + INIT_SLACK_S
+                  and report is not None and report["ok"] is False
+                  and report["error"].startswith("distributed init:"))
+    print(json.dumps(line), flush=True)
+    if not line["ok"]:
+        raise AssertionError(f"unreachable coordinator: {line}, stderr {err}")
+
+    train = runs["multiprocess_train"]
+    print(json.dumps(dict(
+        check="the rendezvous's cost at mfu (train)",
+        **{k: [train[k], getattr(train_report, k)] for k in (
+            "rendezvous_s", "devices_visible_s", "first_step_s",
+            "step_time_s")},
+        order="[the CLI joined as a world of one, phase 4 in this "
+              "process]")), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1029,17 +1150,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _reset(fa)
-    report = validate_slice(cfg=cfg, steps=3, attention="flash", mode="train",
-                            device="cuda")
+    train_report = validate_slice(cfg=cfg, steps=3, attention="flash",
+                                  mode="train", device="cuda")
     train_launches = dict(fa.launches)
-    print(report.to_json(), flush=True)
-    if not report.ok or not report.loss_end < report.loss_start:
-        raise AssertionError(f"validate_slice(mfu, train) not ok: {report.error}")
-    expected = dict.fromkeys(fa.launches, cfg.n_layers * report.steps)
-    if report.steps <= 0 or train_launches != expected:
+    print(train_report.to_json(), flush=True)
+    if not train_report.ok or not train_report.loss_end < train_report.loss_start:
+        raise AssertionError(f"validate_slice(mfu, train) not ok: "
+                             f"{train_report.error}")
+    expected = dict.fromkeys(fa.launches, cfg.n_layers * train_report.steps)
+    if train_report.steps <= 0 or train_launches != expected:
         raise AssertionError(
-            f"training launches {train_launches} in {report.steps} steps; "
-            f"expected {cfg.n_layers} of each kernel per step")
+            f"training launches {train_launches} in {train_report.steps} "
+            f"steps; expected {cfg.n_layers} of each kernel per step")
     print(json.dumps({"launches": {"infer": infer_launches,
                                    "train": train_launches}}), flush=True)
     for entry in entries:
@@ -1108,7 +1230,15 @@ def main() -> int:
             entry["launches_by_path"][path] = counts[entry["name"]]
         entry["launches"] = sum(entry["launches_by_path"].values())
 
-    # 10. results
+    # 10. the multi-process slice: the CLI joined as a world of one
+    _memory(torch, "10")
+    mp_launches = check_multiprocess(torch, fa, cfg, train_report)
+    for entry in entries:
+        for path, counts in mp_launches.items():
+            entry["launches_by_path"][path] = counts[entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+    # 11. results
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -377,3 +377,54 @@ def test_auto_attention_on_card_follows_flash_min_seq(cuda_device, seq):
     assert torch.isfinite(fwd(params, tokens)).all()
     expected = cfg.n_layers if seq >= workload.FLASH_MIN_SEQ else 0
     assert fa.launches["flash_fwd"] - before == expected
+
+
+def _cyclic_cuda_garbage() -> dict:
+    """What a collection finds in reference cycles: the CUDA tensors, their
+    storage in GB, and the functions among the garbage by qualified name
+    (a recursive closure shows as `<outer>.<locals>.<name>`)."""
+    import gc
+    from collections import Counter
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        found = list(gc.garbage)
+    finally:
+        gc.garbage.clear()
+        gc.set_debug(0)
+    tensors = [o for o in found if isinstance(o, torch.Tensor) and o.is_cuda]
+    storage = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+               for t in tensors}
+    return dict(cuda_tensors=len(tensors),
+                cuda_storage_gb=sum(storage.values()) / 1e9,
+                functions=Counter(o.__qualname__ for o in found
+                                  if callable(o) and hasattr(o, "__qualname__")
+                                  ).most_common(5))
+
+
+@pytest.mark.gpu
+def test_back_to_back_validations_free_their_memory(cuda_device):
+    """Two validate_slice(mfu) training runs with the garbage collector
+    off leave memory_allocated within 1 GB of where it started: nothing
+    they allocate waits for a collection. Where it fails, the message
+    names what a collection then finds (a recursive closure in
+    workload._with_leaves once kept each step's gradients alive)."""
+    import gc
+
+    from tpu_device_plugin_torch.validator.probe import PRESETS, validate_slice
+    cfg = workload.ModelConfig(**PRESETS["mfu"])
+    gc.collect()
+    start = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        for run in range(2):
+            report = validate_slice(cfg=cfg, steps=3, mode="train",
+                                    device=cuda_device)
+            assert report.ok, report.error
+            held = torch.cuda.memory_allocated() - start
+            if held >= 1e9:
+                pytest.fail(f"{held / 1e9} GB held after run {run + 1} of "
+                            f"{report.steps} steps; in cycles: "
+                            f"{_cyclic_cuda_garbage()}")
+    finally:
+        gc.enable()

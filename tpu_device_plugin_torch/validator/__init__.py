@@ -12,9 +12,12 @@ backward). Run it in the guest:
 It reports the training step time, TFLOP/s and MFU (or, with
 `--mode infer`, the serving latency percentiles and tokens/s) and the
 card's matmul and memory microbench against its datasheet peak. With
-several cards it runs a (dp, sp, tp) mesh, one process per card, with ring
-attention over sp (`--tp`, `--sp`). MoE, the pp/ep axes, GPipe and the
-benches are ported in later slices (ROADMAP.md, Queue 1).
+several cards it runs a (pp, dp, sp, ep, tp) mesh, one process per card,
+with ring attention over sp (`--tp`, `--sp`, `--pp`, `--ep`), a top-1
+switch MoE (`--experts`) and the GPipe schedule (`--gpipe-microbatches`);
+several guests compose one slice with `--coordinator`,
+`--num-processes` and `--process-id`. `--mode attn-bench` and
+`--mode ring-bench` time the kernels.
 """
 
 from .workload import ModelConfig, build_infer, build_workload  # noqa: F401

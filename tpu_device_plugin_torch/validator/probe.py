@@ -11,8 +11,11 @@ device (every visible card by default) the step runs on a
 `--ep`), or with the GPipe schedule over pp x dp
 (`--gpipe-microbatches`, pipeline.py). `--mode attn-bench` and
 `--mode ring-bench` time the flash kernels against einsum attention
-(attn_bench.py, ring_bench.py) and print one JSON line. Exit code is
-non-zero when the slice is unusable, so a VMI startup probe can gate
+(attn_bench.py, ring_bench.py) and print one JSON line. Several guests
+(VMIs), each holding some of a slice's cards, compose one slice with
+`--coordinator host:port --num-processes N --process-id i`: the mesh then
+spans every guest's cards, and each guest prints its own report. Exit code
+is non-zero when the slice is unusable, so a VMI startup probe can gate
 workload admission on it; 2 marks the caller's configuration.
 """
 
@@ -36,6 +39,8 @@ class SliceReport:
     device_kinds: List[str] = field(default_factory=list)
     mesh_shape: Dict[str, int] = field(default_factory=dict)
     devices_visible_s: float = 0.0   # process start -> device enumerated
+    rendezvous_s: float = 0.0        # the multi-VMI join, or the seconds
+                                     # until it failed (0 without one)
     first_step_s: float = 0.0        # process start -> first step done
     step_time_s: float = 0.0         # steady-state train step / forward time
     tflops_per_chip: float = 0.0     # burn-in matmul throughput (train mode)
@@ -63,6 +68,9 @@ class SliceReport:
     # step K1, K2 and K3 once per layer (K1 twice with remat)
     forwards: int = 0
     steps: int = 0
+    # the flash kernels' launches (flash_attention.launches) during those
+    # steps or forwards, in the process that ran them
+    launches: Dict[str, int] = field(default_factory=dict)
     # True when the failure is the CALLER's configuration, not a broken
     # card — probes gating VMI admission must not treat it as hardware
     invalid_config: bool = False
@@ -152,12 +160,30 @@ def _microbench(device: torch.device, min_diff_s: Optional[float] = None):
 MESH_TIMEOUT_S = 900.0
 
 
+def join_slice(coordinator: str, num_processes: Optional[int],
+               process_id: Optional[int], init_timeout: float = 60,
+               device=None, n_devices: Optional[int] = None):
+    """This guest's part of a slice composed over several guest processes
+    (`distributed.join`): its local devices on `device` (CUDA by default;
+    `n_devices`, by default every visible card on CUDA and 1 on the CPU)
+    are put in with their names. Returns the `distributed.World` that
+    `validate_slice(world=)` takes; raises on a failed rendezvous."""
+    from .distributed import join
+    from .workload import resolve_device
+    dev = resolve_device(device)
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    kinds = ([torch.cuda.get_device_name(i) for i in range(n_devices)]
+             if dev.type == "cuda" else [dev.type] * n_devices)
+    return join(coordinator, num_processes, process_id, kinds, init_timeout)
+
+
 def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                    mode: str = "train", device=None, tp: Optional[int] = None,
                    sp: Optional[int] = None, n_devices: Optional[int] = None,
                    pp: Optional[int] = None,
                    ep: Optional[int] = None,
-                   gpipe_microbatches: int = 0) -> SliceReport:
+                   gpipe_microbatches: int = 0, world=None) -> SliceReport:
     """Validation of a slice: training steps (`mode="train"`) or serving
     forwards (`mode="infer"`) on `device` (CUDA by default).
 
@@ -168,6 +194,13 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
     on the CPU): rank 0 fills the report, `ok` is every rank's verdict
     ANDed, and the microbench runs on rank 0's card. `mesh_shape` lists
     the mesh's axes (pp and ep where they are larger than 1).
+
+    With `world` (`join_slice`), the slice is the world's: this guest's
+    `n_devices` (by default all it joined with) run as its global ranks,
+    one process each even for one device, and the mesh is factored over
+    the world's size. `n_devices` and `device_kinds` are the world's; the
+    report is that of this guest's first rank, whose card runs the
+    microbench; `ok` is the whole world's verdict.
 
     With `gpipe_microbatches` > 0, training runs the GPipe schedule over
     that many microbatches (`pipeline.build_gpipe`, einsum attention) on
@@ -187,17 +220,21 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
         dev = resolve_device(device)
         report.devices_visible_s = time.monotonic() - _PROCESS_START
         if n_devices is None:
-            n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-        report.n_devices = n_devices
-        if dev.type == "cuda":
-            report.platform = "gpu"
+            n_devices = (world.local if world is not None
+                         else torch.cuda.device_count() if dev.type == "cuda"
+                         else 1)
+        report.n_devices = n_devices if world is None else world.size
+        report.rendezvous_s = 0.0 if world is None else world.join_s
+        report.platform = "gpu" if dev.type == "cuda" else dev.type
+        if world is not None:
+            report.device_kinds = world.kinds
+        elif dev.type == "cuda":
             ids = [dev.index] if n_devices == 1 else range(n_devices)
             report.device_kinds = sorted({torch.cuda.get_device_name(i)
                                           for i in ids})
         else:
-            report.platform = dev.type
             report.device_kinds = [dev.type]
-        dims = dict(mesh_dims(n_devices, tp, sp, pp, ep))
+        dims = dict(mesh_dims(report.n_devices, tp, sp, pp, ep))
         cfg = cfg or ModelConfig()
         steps = max(steps, 1)
         gpipe = gpipe_microbatches if mode == "train" else 0
@@ -219,16 +256,17 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
                 report.invalid_config = True
                 report.error = f"invalid configuration: {exc}"
                 return report
-        if n_devices > 1:
+        if n_devices > 1 or world is not None:
             from .distributed import spawn
             report.mesh_shape = dims
+            first = 0 if world is None else world.offset
             ranks = spawn(_validate_rank, n_devices, dev.type, MESH_TIMEOUT_S,
                           args=(cfg, steps, attention, mode, _PROCESS_START,
-                                gpipe),
+                                gpipe, first),
                           mesh=dict(tp=dims["tp"], sp=dims["sp"], pp=pp,
-                                    ep=ep))
+                                    ep=ep), world=world)
             kept = ("platform", "n_devices", "device_kinds", "mesh_shape",
-                    "devices_visible_s")
+                    "devices_visible_s", "rendezvous_s")
             for key, value in ranks[0].items():
                 if key not in kept:
                     setattr(report, key, value)
@@ -242,17 +280,24 @@ def validate_slice(cfg=None, steps: int = 20, attention: Optional[str] = None,
 
 def _run(report: SliceReport, cfg, steps: int, attention, mode: str, dev,
          mesh=None, gpipe: int = 0) -> None:
-    if mode == "infer":
-        _serve(report, cfg, steps, attention, dev, mesh)
-    else:
-        _train(report, cfg, steps, attention, dev, mesh, gpipe)
+    from .flash_attention import launches
+    before = dict(launches)
+    try:
+        if mode == "infer":
+            _serve(report, cfg, steps, attention, dev, mesh)
+        else:
+            _train(report, cfg, steps, attention, dev, mesh, gpipe)
+    finally:
+        report.launches = {k: launches[k] - before[k] for k in launches}
 
 
 def _validate_rank(rank: int, mesh, cfg, steps: int, attention, mode: str,
-                   process_start: float, gpipe: int = 0) -> Optional[dict]:
+                   process_start: float, gpipe: int = 0,
+                   first: int = 0) -> Optional[dict]:
     """One rank of a validation over a mesh (run by `distributed.spawn`):
     its part of the steps or forwards, then the verdict ANDed over every
-    rank; rank 0 also runs the microbench and returns its report."""
+    rank; the guest's first rank (`first`: 0, or the world's offset) also
+    runs the microbench and returns its report."""
     import torch.distributed as dist
     global _PROCESS_START
     _PROCESS_START = process_start   # the caller's process start
@@ -265,7 +310,7 @@ def _validate_rank(rank: int, mesh, cfg, steps: int, attention, mode: str,
     if report.ok and not verdict.item():
         report.ok = False
         report.error = "another rank's verdict failed"
-    if rank != 0:
+    if rank != first:
         return None
     _check_card(report, dev)
     return dict(report.__dict__)
@@ -527,10 +572,11 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--tp", type=int, default=None,
                         help="tensor-parallel size (heads and ffn), over "
-                             "the visible cards")
+                             "the slice's cards (every guest's with "
+                             "--coordinator)")
     parser.add_argument("--sp", type=int, default=None,
                         help="sequence-parallel size (ring attention), over "
-                             "the visible cards")
+                             "the slice's cards")
     parser.add_argument("--pp", type=int, default=None,
                         help="pipeline stages (the stacked layers cut over a "
                              "pp mesh axis; n_layers %% pp must be 0)")
@@ -543,7 +589,37 @@ def main(argv=None) -> int:
                         help="train with the GPipe schedule (pipeline.py) "
                              "over this many microbatches; needs --pp > 1 "
                              "and tp == sp == ep == 1")
+    # multi-VMI slices: each guest runs the validator with the same
+    # coordinator; the guests' cards compose one world (distributed.join)
+    # and the mesh spans all of them
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0 for a multi-VMI slice")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--init-timeout", type=int, default=60,
+                        help="seconds to wait for the multi-VMI rendezvous "
+                             "before reporting failure (default 60)")
     args = parser.parse_args(argv)
+    if args.coordinator is None:
+        return _dispatch(args, parser, None)
+    start = time.monotonic()
+    try:
+        world = join_slice(args.coordinator, args.num_processes,
+                           args.process_id, args.init_timeout, args.device)
+    except Exception as exc:  # report, don't crash the probe harness
+        # an unreachable coordinator too: the store's connect times out
+        # and raises (the JAX probe's coordination client aborts there)
+        print(SliceReport(ok=False, rendezvous_s=time.monotonic() - start,
+                          error=f"distributed init: {type(exc).__name__}: "
+                                f"{exc}").to_json())
+        return 1
+    with world:
+        return _dispatch(args, parser, world)
+
+
+def _dispatch(args, parser, world) -> int:
+    """The mode: a bench on this guest's own cards, or the validation of
+    the slice (`world`'s when joined)."""
     if args.mode in ("attn-bench", "ring-bench"):
         return _bench(args, parser)
     from .workload import ModelConfig
@@ -583,7 +659,8 @@ def main(argv=None) -> int:
     report = validate_slice(cfg=cfg, steps=args.steps, attention=attention,
                             mode=args.mode, device=args.device, tp=args.tp,
                             sp=args.sp, pp=args.pp, ep=args.ep,
-                            gpipe_microbatches=args.gpipe_microbatches)
+                            gpipe_microbatches=args.gpipe_microbatches,
+                            world=world)
     print(report.to_json())
     if report.invalid_config:
         return 2  # caller error, not a broken card

@@ -505,13 +505,17 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
 
 def _with_leaves(tree: Params, leaves) -> Params:
     """A tree of `tree`'s structure holding `leaves` (in `_leaves` order)."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
-    return build(tree)
+
+def _build(node, it) -> Params:
+    # module level, not a closure: a recursive closure refers to itself
+    # through its cell, and that cycle kept the iterator, hence every leaf
+    # it placed (each step's gradients among them), alive until the
+    # garbage collector ran
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    return next(it)
 
 
 def _grad_axes(key: str, spec: Tuple) -> Tuple[str, ...]:
