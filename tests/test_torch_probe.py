@@ -348,7 +348,7 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_nor_the_jax_package():
     files = sorted((REPO / "tpu_device_plugin_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_step.py"]
+    files += [REPO / "chip_smoke.py"]
     assert REPO / "tpu_device_plugin_torch" / "entry.py" in files
     assert len(files) > 5
     for path in files:

@@ -52,6 +52,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import tracing
 from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
                           pipe_send, queue_offsets)
 from .mesh import mesh_shape
@@ -317,6 +318,9 @@ def _moe(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     place = _running_count(onehot.transpose(1, 2)).transpose(1, 2)
     place = (place + offsets[:, None]).reshape(t, -1)
     kept = place.gather(1, top1[:, None])[:, 0] <= cap
+    if tracing.counting():
+        tracing.count("moe.routed", t)
+        tracing.count("moe.dropped", (~kept).sum())
 
     n_local = layer["w1e"].shape[0]
     local = top1 - (0 if ax is None else ax.index["ep"]) * n_local
@@ -373,11 +377,17 @@ def _rms_norm(x: torch.Tensor) -> torch.Tensor:
 
 def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                 attention: str, ax: Optional[_Axes] = None) -> torch.Tensor:
-    """One transformer block (attention + MoE/MLP residuals)."""
-    x = x + _attention(_rms_norm(x), layer, cfg, attention, ax)
-    if cfg.n_experts:
-        return x + _moe(_rms_norm(x), layer, cfg, ax)
-    return x + _mlp(_rms_norm(x), layer, ax)
+    """One transformer block (attention + MoE/MLP residuals), each half
+    under its span (tracing.py), forward and backward."""
+    with tracing.span("workload.attention"):
+        y = x + _attention(_rms_norm(x), layer, cfg, attention, ax)
+        x = tracing.backward("workload.attention", x, y)
+    with tracing.span("workload.ffn"):
+        if cfg.n_experts:
+            y = x + _moe(_rms_norm(x), layer, cfg, ax)
+        else:
+            y = x + _mlp(_rms_norm(x), layer, ax)
+        return tracing.backward("workload.ffn", x, y)
 
 
 def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -431,7 +441,8 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
              attention: str, ax: Optional[_Axes]) -> torch.Tensor:
     x = _stage(params, tokens, cfg, attention, ax)
     if ax is None or ax.size["pp"] == 1:
-        return _head(params, x, ax)
+        with tracing.span("workload.head"):
+            return _head(params, x, ax)
     # the logits are replicated over pp, as the JAX version's out_shardings
     # replicate them: broadcast from the last stage
     if ax.last_stage():
@@ -448,7 +459,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Logits (batch, seq, vocab) in f32. On a mesh, `params` are this
     rank's shards and `tokens` its (dp, sp) block; so are the logits,
     which every pp stage returns."""
-    return _forward(params, tokens, cfg, attention, _axes(mesh))
+    with tracing.span("workload.forward", root=True):
+        return _forward(params, tokens, cfg, attention, _axes(mesh))
 
 
 def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
@@ -475,9 +487,11 @@ def _nll_sum(params: Params, x: torch.Tensor, targets: torch.Tensor,
     """The summed next-token NLL of the last layer's residual stream x
     against `targets`, which may be one position shorter than x (the last
     global position predicts nothing)."""
-    logits = _head(params, x, ax)
-    logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
-    return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
+    with tracing.span("workload.head"):
+        logits = _head(params, x, ax)
+        logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
+        nll = -torch.gather(logprobs, -1, targets[..., None].long()).sum()
+        return tracing.backward("workload.head", x, nll)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -571,8 +585,10 @@ def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
     m <- momentum * m + g, p <- p - lr * m. params and momentum are updated
     in place (the JAX version donates them) and returned with the loss,
     which is the loss before the update."""
-    loss, grads = value_and_grad(params, tokens, cfg, attention, mesh)
-    _sgd_update(params, momentum, grads, cfg.momentum, cfg.lr)
+    with tracing.span("workload.sgd_step", root=True):
+        loss, grads = value_and_grad(params, tokens, cfg, attention, mesh)
+        with tracing.span("workload.sgd_update"):
+            _sgd_update(params, momentum, grads, cfg.momentum, cfg.lr)
     return params, momentum, loss
 
 
