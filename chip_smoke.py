@@ -14,15 +14,19 @@ failure:
    (`tol_ratio` <= 1), at the main path's shape and at small ragged
    shapes, and time the kernel (with its `bound_share` and TFLOP/s), the
    plain version, and the one PyTorch call computing the same function
-   (`library_ms`, a yardstick the port never calls);
+   (`library_ms`, a yardstick the port never calls); the same for the
+   training head's NLL kernel pair (xent_fwd, xent_bwd) at switch-base-8's
+   and pythia-1.4b's head shapes and a ragged vocab, timed at Switch's
+   beside its bound by bytes, its plain version and `F.cross_entropy` on
+   the f32 logits;
 4. drive the serving path at the `mfu` preset through
    `probe.validate_slice(mode="infer")` and the training path through
    `probe.validate_slice(mode="train")`, each with the launch counts set
    to 0 just before it, and assert each is ok and went through its
-   kernels; then compare one forward's logits, and one training step's
-   loss and gradients, with the same computation through the kernels'
-   plain versions on the same weights, at mfu and at a small
-   configuration;
+   kernels (the head's pair once a training step, never in serving); then
+   compare one forward's logits, and one training step's loss and
+   gradients, with the same computation through the kernels' plain
+   versions on the same weights, at mfu and at a small configuration;
 5. run ring flash attention at the mfu attention shape over sp 2 and 4
    on this one card (the ring's ranks as threads, each on its own
    stream), hold o, lse, dq, dk and dv against global attention through
@@ -102,6 +106,21 @@ GRAD_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
 GRAD_ATOL = {"bfloat16": 1e-4, "float32": 1e-5}
 FLIP_RTOL = 2 ** -7
 LSE_TOL = 1e-3
+# The head's NLL kernels vs their plain version, from the same bf16
+# logits in f32: each row's lse and NLL within NLL_ATOL (exp is
+# ex2.approx, ~2^-22 relative; the row's sums run in another order), the
+# summed loss within NLL_RTOL. The bf16 gradient g (p - onehot): each side
+# computes p within a few 1e-6 of it, relative, and rounds once, so
+# |d| <= 2^-7 |ref| (one ulp) + XENT_GRAD_ATOL (p flushed to 0 under
+# 2^-126), and at each target XENT_TARGET_ATOL |g| more (p - 1 loses the
+# relative precision of p); rows past T exactly 0.
+NLL_ATOL = 1e-4
+NLL_RTOL = 1e-5
+XENT_GRAD_ATOL = 1e-30
+XENT_TARGET_ATOL = 1e-5
+# (B, S, T, V): switch-base-8's head (timed), pythia-1.4b's, a ragged vocab
+XENT_SHAPES = [(128, 512, 511, 32128), (8, 2048, 2047, 50304),
+               (2, 96, 95, 1001)]
 # One training step through the kernels vs the same step through the plain
 # versions: only the attention's summation order and bf16 roundings of its
 # outputs differ, fed through 8 bf16 layers; the port's step against the
@@ -445,9 +464,139 @@ def check_flash_bwd(torch, fa, dev):
     return entries
 
 
+def xent_bounds(b: int, s: int, t: int, v: int):
+    """Least time (ms) for xent_fwd and for xent_bwd on the card, both bound
+    by bytes: the forward reads the T rows of bf16 logits once and writes
+    two f32 values a row; the backward reads those rows, their lse and
+    target, and writes the whole (B, S, V) bf16 gradient once."""
+    rows = b * t
+    fwd = rows * v * 2 + rows * (8 + 8)
+    bwd = rows * v * 2 + rows * (4 + 8) + b * s * v * 2
+    return {"xent_fwd": (*_bound(0, fwd, "bfloat16"), fwd),
+            "xent_bwd": (*_bound(0, bwd, "bfloat16"), bwd)}
+
+
+def xent_grad_err(torch, grad, ref, targets, g) -> dict:
+    """max |d| and `tol_ratio` (held to <= 1) of the head's bf16 gradient
+    against the plain version's, by the bar above; in blocks of rows, to
+    keep the f32 copies small."""
+    t = targets.shape[1]
+    worst = max_abs = 0.0
+    for i in range(0, grad.shape[0], 16):
+        out, want = grad[i:i + 16].float(), ref[i:i + 16].float()
+        diff = (out - want).abs()
+        bar = GRAD_RTOL["bfloat16"] * want.abs() + XENT_GRAD_ATOL
+        tg = targets[i:i + 16, :, None]
+        bar[:, :t].scatter_add_(-1, tg, torch.full(
+            tg.shape, XENT_TARGET_ATOL * abs(g.item()), device=bar.device))
+        worst = max(worst, (diff / bar).max().item())
+        max_abs = max(max_abs, diff.max().item())
+    return dict(max_abs_err=max_abs, tol_ratio=worst)
+
+
+def check_xent(torch, dev):
+    """Phase 3 for the head's NLL pair: every shape against the plain
+    version; times at switch-base-8's head shape. Returns the pair's JSON
+    entry (launches filled later)."""
+    import torch.nn.functional as F
+    from tpu_device_plugin_torch.validator import xent
+    gen = torch.Generator(dev).manual_seed(2)
+    g = torch.tensor(0.37, device=dev)
+    checks = []
+    for b, s, t, v in XENT_SHAPES:
+        logits = (4 * torch.randn((b, s, v), generator=gen, device=dev)
+                  ).to(torch.bfloat16)
+        targets = torch.randint(0, v, (b, s + 1), generator=gen,
+                                device=dev)[:, 1:t + 1]
+        lse, nll = xent.nll_rows(logits, targets)
+        grad = xent.nll_grad(logits, targets, lse, g)
+        loss = nll.sum()
+        torch.cuda.synchronize()
+        ref_lse, ref_nll = xent.nll_rows_plain(logits, targets)
+        err_lse = (lse - ref_lse).abs().max().item()
+        err_nll = (nll - ref_nll).abs().max().item()
+        del ref_lse, ref_nll
+        leaf = logits.detach().requires_grad_()
+        ref = xent.nll_sum_plain(leaf, targets)
+        ref_grad, = torch.autograd.grad(ref * g, leaf)
+        err = xent_grad_err(torch, grad, ref_grad, targets, g)
+        del ref_grad, leaf
+        loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+        zero_past_t = bool((grad[:, t:] == 0).all())
+        ok = (err_lse <= NLL_ATOL and err_nll <= NLL_ATOL
+              and loss_rel <= NLL_RTOL and err["tol_ratio"] <= 1.0
+              and zero_past_t and bool(torch.isfinite(grad).all()))
+        line = dict(kernel="xent", b=b, s=s, t=t, v=v,
+                    lse_max_abs_err=err_lse, nll_max_abs_err=err_nll,
+                    loss_rel_err=loss_rel, zero_past_t=zero_past_t, **err,
+                    nll_atol=NLL_ATOL, nll_rtol=NLL_RTOL, ok=ok)
+        print(json.dumps(line), flush=True)
+        checks.append(line)
+        if not ok:
+            raise AssertionError(f"xent disagrees with its plain version: "
+                                 f"{line}")
+        del logits, targets, lse, nll, grad, ref
+        torch.cuda.empty_cache()
+
+    b, s, t, v = XENT_SHAPES[0]
+    logits = (4 * torch.randn((b, s, v), generator=gen, device=dev)
+              ).to(torch.bfloat16)
+    targets = torch.randint(0, v, (b, s + 1), generator=gen,
+                            device=dev)[:, 1:t + 1]
+    lse, _ = xent.nll_rows(logits, targets)
+    ms = {"xent_fwd": _cuda_ms(torch, lambda: xent.nll_rows(logits, targets),
+                               20),
+          "xent_bwd": _cuda_ms(torch, lambda: xent.nll_grad(logits, targets,
+                                                            lse, g), 20)}
+    leaf = logits.detach().requires_grad_()
+    pair_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        xent.nll_sum(leaf, targets), leaf), 10)
+    plain_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        xent.nll_sum_plain(leaf, targets), leaf), 3)
+    torch.cuda.empty_cache()
+    # yardstick: cross-entropy on the f32 logits of the T positions
+    wide = logits.float()[:, :t].reshape(-1, v).requires_grad_()
+    flat = targets.reshape(-1)
+    library_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        F.cross_entropy(wide, flat, reduction="sum"), wide), 3)
+    del wide, leaf, logits, lse
+    torch.cuda.empty_cache()
+    bounds = xent_bounds(b, s, t, v)
+    bound_ms = sum(bounds[k][0] for k in bounds)
+    nbytes = sum(bounds[k][2] for k in bounds)
+    line = dict(kernel="xent", b=b, s=s, t=t, v=v, ms=pair_ms,
+                fwd_ms=ms["xent_fwd"], bwd_ms=ms["xent_bwd"],
+                fwd_bound_ms=bounds["xent_fwd"][0],
+                bwd_bound_ms=bounds["xent_bwd"][0], bound_ms=bound_ms,
+                bound_by="bytes", bound_share=bound_ms / pair_ms,
+                tb_per_s=nbytes / pair_ms * 1e-9, plain_ms=plain_ms,
+                library_ms=library_ms)
+    print(json.dumps(line), flush=True)
+    return {
+        "name": "xent",
+        "route": "cuda",
+        "source": "tpu_device_plugin_torch/validator/csrc/xent.cu",
+        "replaces": "none (the training loss's log-softmax and gather, "
+                    "tpu_device_plugin/validator/workload.py:328, left to XLA)",
+        "launches": 0,
+        **{key: checks[0][key] for key in ("lse_max_abs_err",
+                                           "nll_max_abs_err", "loss_rel_err",
+                                           "max_abs_err", "tol_ratio")},
+        **{key: line[key] for key in ("ms", "fwd_ms", "bwd_ms", "bound_ms",
+                                      "bound_by", "bound_share", "plain_ms",
+                                      "library_ms")},
+        "library_is": "F.cross_entropy forward and backward on the f32 "
+                      "logits of the T positions",
+        "ok": all(c["ok"] for c in checks),
+        "checks": len(checks),
+    }
+
+
 def _reset(fa):
-    for name in fa.launches:
-        fa.launches[name] = 0
+    from tpu_device_plugin_torch.validator import xent
+    for counts in (fa.launches, xent.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 class _Router:
@@ -475,7 +624,7 @@ def compare_moe_steps(torch, fa, cfg, dev) -> dict:
     step on the kernel step's routes; and the plain step's own routes
     against the kernel step's (every disagreement a tie within the
     layer's largest router-logit difference)."""
-    from tpu_device_plugin_torch.validator import workload
+    from tpu_device_plugin_torch.validator import workload, xent
     _, params, _, tokens = workload.build_workload(cfg, seed=0,
                                                    attention="flash",
                                                    device=dev)
@@ -491,6 +640,7 @@ def compare_moe_steps(torch, fa, cfg, dev) -> dict:
     with mock.patch.object(fa, "flash_attention_fwd", fa.flash_attention_plain), \
             mock.patch.object(fa, "flash_attention_bwd",
                               fa.flash_attention_bwd_plain), \
+            mock.patch.object(xent, "nll_sum", xent.nll_sum_plain), \
             mock.patch.object(workload, "_route", plain_routes):
         ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
     if fa.launches != expected:
@@ -618,23 +768,26 @@ def check_moe(torch, fa, cfg, dev):
 def compare_steps(torch, fa, cfg, dev) -> dict:
     """One training step's loss and gradients through the kernels and
     through their plain versions, on the same weights and tokens."""
-    from tpu_device_plugin_torch.validator import workload
+    from tpu_device_plugin_torch.validator import workload, xent
     _, params, _, tokens = workload.build_workload(cfg, seed=0,
                                                    attention="flash",
                                                    device=dev)
     _reset(fa)
     loss, grads = workload.value_and_grad(params, tokens, cfg, "flash")
     expected = dict.fromkeys(fa.launches, cfg.n_layers)
-    if fa.launches != expected:
-        raise AssertionError(f"kernel step launched {fa.launches}, "
-                             f"expected {expected}")
-    # the flash Function, routed through the plain versions
+    head = dict.fromkeys(xent.launches, 1)
+    if fa.launches != expected or xent.launches != head:
+        raise AssertionError(f"kernel step launched {fa.launches} and "
+                             f"{xent.launches}, expected {expected}, {head}")
+    # the flash Function and the head, routed through the plain versions
     with mock.patch.object(fa, "flash_attention_fwd", fa.flash_attention_plain), \
             mock.patch.object(fa, "flash_attention_bwd",
-                              fa.flash_attention_bwd_plain):
+                              fa.flash_attention_bwd_plain), \
+            mock.patch.object(xent, "nll_sum", xent.nll_sum_plain):
         ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
-    if fa.launches != expected:
-        raise AssertionError(f"plain step launched a kernel: {fa.launches}")
+    if fa.launches != expected or xent.launches != head:
+        raise AssertionError(f"plain step launched a kernel: {fa.launches}, "
+                             f"{xent.launches}")
     rel = {}
     for (key, g), r in zip(workload._named_leaves(grads),
                            workload._leaves(ref)):
@@ -1108,6 +1261,7 @@ def main() -> int:
         return 1
     from tpu_device_plugin_torch.validator import _kernels
     from tpu_device_plugin_torch.validator import flash_attention as fa
+    from tpu_device_plugin_torch.validator import xent
     from tpu_device_plugin_torch.validator.probe import PRESETS, validate_slice
     from tpu_device_plugin_torch.validator.workload import ModelConfig
 
@@ -1130,6 +1284,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     entries = [check_flash_fwd(torch, fa, dev), *check_flash_bwd(torch, fa, dev)]
     torch.cuda.empty_cache()
+    xent_entry = check_xent(torch, dev)
+    torch.cuda.empty_cache()
 
     # 4. the serving and the training path at the mfu preset, counted
     _memory(torch, "4")
@@ -1138,11 +1294,15 @@ def main() -> int:
     report = validate_slice(cfg=cfg, steps=5, attention="flash", mode="infer",
                             device="cuda")
     infer_launches = dict(fa.launches)
+    infer_xent = dict(xent.launches)
     print(report.to_json(), flush=True)
     if not report.ok:
         raise AssertionError(f"validate_slice(mfu, infer) not ok: {report.error}")
     expected = {"flash_fwd": cfg.n_layers * report.forwards,
                 "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if infer_xent != dict.fromkeys(xent.launches, 0):
+        raise AssertionError(f"serving launched the head's kernels: "
+                             f"{infer_xent}")
     if report.forwards <= 0 or infer_launches != expected:
         raise AssertionError(
             f"serving launches {infer_launches} in {report.forwards} "
@@ -1153,6 +1313,7 @@ def main() -> int:
     train_report = validate_slice(cfg=cfg, steps=3, attention="flash",
                                   mode="train", device="cuda")
     train_launches = dict(fa.launches)
+    train_xent = dict(xent.launches)
     print(train_report.to_json(), flush=True)
     if not train_report.ok or not train_report.loss_end < train_report.loss_start:
         raise AssertionError(f"validate_slice(mfu, train) not ok: "
@@ -1162,8 +1323,16 @@ def main() -> int:
         raise AssertionError(
             f"training launches {train_launches} in {train_report.steps} "
             f"steps; expected {cfg.n_layers} of each kernel per step")
+    if train_xent != dict.fromkeys(xent.launches, train_report.steps):
+        raise AssertionError(
+            f"the head's kernels launched {train_xent} in "
+            f"{train_report.steps} steps; expected one of each per step")
     print(json.dumps({"launches": {"infer": infer_launches,
-                                   "train": train_launches}}), flush=True)
+                                   "train": train_launches,
+                                   "head_infer": infer_xent,
+                                   "head_train": train_xent}}), flush=True)
+    xent_entry["launches"] = sum(train_xent.values())
+    xent_entry["launches_by_path"] = {"infer": infer_xent, "train": train_xent}
     for entry in entries:
         entry["launches"] = (infer_launches[entry["name"]]
                              + train_launches[entry["name"]])
@@ -1239,7 +1408,7 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
 
     # 11. results
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": entries + [xent_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,14 +20,25 @@ kernel is held against its plain PyTorch version on the same inputs:
   rounds the other way, by one bf16 ulp (2^-7 of it), so the largest
   single term of the element's sum (`rounding_terms_fwd`, `_dkv`, `_dq`)
   is allowed once.
+- xent_fwd, xent_bwd (the training head's NLL): each row's lse and NLL
+  within NLL_ATOL of the plain version's (f32 from the same bf16 values;
+  exp is `ex2.approx`, ~2^-22 relative, and sums run in another order),
+  the summed loss within NLL_RTOL. The bf16 gradient g (p - onehot)
+  against the composition's autograd gradient: both compute p within a
+  few 1e-6 of it, relative, and round once, so |d| <= 2^-7 |ref| (one
+  ulp) + XENT_GRAD_ATOL (p flushed to 0 under 2^-126), and at each target
+  XENT_TARGET_ATOL |g| more (p - 1 loses p's relative precision); rows
+  past T exactly 0.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from tpu_device_plugin_torch.validator import flash_attention as fa
-from tpu_device_plugin_torch.validator import workload
+from tpu_device_plugin_torch.validator import tracing, workload, xent
 
 LSE_TOL = 1e-3
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -7}
@@ -35,6 +46,14 @@ GRAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
 FLIP_RTOL = 2 ** -7
 SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
              seq_len=96, batch=2)
+NLL_ATOL = 1e-4
+NLL_RTOL = 1e-5
+XENT_GRAD_ATOL = 1e-30
+XENT_TARGET_ATOL = 1e-5
+# (B, S, T, V): switch-base-8's and pythia-1.4b's vocab (the benchmark's
+# row widths), a ragged vocab, T = S
+XENT_SHAPES = [(2, 64, 63, 32128), (2, 32, 31, 50304), (3, 40, 39, 1001),
+               (2, 16, 16, 1001)]
 
 
 @pytest.fixture
@@ -428,3 +447,84 @@ def test_back_to_back_validations_free_their_memory(cuda_device):
                             f"{_cyclic_cuda_garbage()}")
     finally:
         gc.enable()
+
+
+def _xent_inputs(b, s, t, v, device, seed=0, strided=False):
+    gen = torch.Generator(device).manual_seed(seed)
+    width = v + 3 if strided else v   # rows 3 elements apart: no alignment
+    logits = (4 * torch.randn((b, s, width), generator=gen, device=device)
+              ).to(torch.bfloat16)[..., :v]
+    targets = torch.randint(0, v, (b, t), generator=gen, device=device)
+    return logits, targets
+
+
+def xent_grad_close(grad, ref, targets, g) -> bool:
+    t = targets.shape[1]
+    bar = GRAD_RTOL["bfloat16"] * ref.float().abs() + XENT_GRAD_ATOL
+    bar[:, :t].scatter_add_(-1, targets[..., None], torch.full(
+        targets[..., None].shape, XENT_TARGET_ATOL * abs(g), device=bar.device))
+    return bool(((grad.float() - ref.float()).abs() <= bar).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("shape", XENT_SHAPES,
+                         ids=[f"B{b}S{s}T{t}V{v}" for b, s, t, v in XENT_SHAPES])
+def test_xent_kernels_match_plain(cuda_device, shape, strided):
+    b, s, t, v = shape
+    logits, targets = _xent_inputs(*shape, cuda_device, strided=strided)
+    lse, nll = xent.nll_rows(logits, targets)
+    ref_lse, ref_nll = xent.nll_rows_plain(logits, targets)
+    torch.cuda.synchronize()
+    assert (lse - ref_lse).abs().max().item() <= NLL_ATOL
+    assert (nll - ref_nll).abs().max().item() <= NLL_ATOL
+    g = torch.tensor(0.37, device=cuda_device)
+    grad = xent.nll_grad(logits, targets, lse, g)
+    leaf = logits.detach().requires_grad_()
+    (xent.nll_sum_plain(leaf, targets) * g).backward()
+    assert grad.shape == (b, s, v) and grad.dtype == torch.bfloat16
+    assert (grad[:, t:] == 0).all()
+    assert xent_grad_close(grad, leaf.grad, targets, g.item())
+    loss = xent.nll_sum(logits, targets)
+    ref = xent.nll_sum_plain(logits, targets)
+    assert abs(loss.item() - ref.item()) <= NLL_RTOL * abs(ref.item())
+
+
+@pytest.mark.gpu
+def test_xent_counts_one_launch_each_way_and_raises_on_bad_input(cuda_device):
+    logits, targets = _xent_inputs(2, 12, 11, 1001, cuda_device)
+    leaf = logits.detach().requires_grad_()
+    before = dict(xent.launches)
+    with tracing.recording() as rec:
+        xent.nll_sum(leaf, targets).backward()
+    torch.cuda.synchronize()
+    assert xent.launches == {k: n + 1 for k, n in before.items()}
+    assert rec.counts["head.fused_rows"] == 2 * 11
+    with pytest.raises(ValueError, match="bfloat16 logits"):
+        xent.nll_sum(logits.float(), targets)
+    with pytest.raises(ValueError, match="0 < T <= S"):
+        xent.nll_sum(logits, torch.zeros((2, 13), dtype=torch.int64,
+                                         device=cuda_device))
+    assert xent.launches == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_experts", [0, 2])
+def test_training_head_goes_through_the_kernels(cuda_device, n_experts):
+    """Each step's head: one xent_fwd and one xent_bwd, B x (seq - 1)
+    fused rows, and no log-softmax."""
+    cfg = workload.ModelConfig(**SMALL, n_experts=n_experts)
+    step, params, momentum, tokens = workload.build_workload(
+        cfg, attention="flash", device=cuda_device)
+    before = dict(xent.launches)
+    with mock.patch("torch.log_softmax", side_effect=AssertionError(
+            "log_softmax on the training path")), \
+            tracing.recording() as rec:
+        losses = [step(params, momentum, tokens)[2].item() for _ in range(3)]
+    assert xent.launches == {k: n + 3 for k, n in before.items()}
+    assert rec.counts["head.fused_rows"] == 3 * cfg.batch * (cfg.seq_len - 1)
+    assert losses[-1] < losses[0]
+    with torch.no_grad():   # serving never enters the kernels
+        logits = workload.forward(params, tokens, cfg, "flash")
+    assert logits.dtype == torch.float32
+    assert xent.launches == {k: n + 3 for k, n in before.items()}

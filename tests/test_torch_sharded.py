@@ -18,7 +18,12 @@ in f32 and rounds once: at tp 2 with ring attention the JAX sharded loss
 moved 7.1e-4 from its single-device loss, the port's 6e-5 from its own
 (CPU). The sharded forward's logits, gathered, are held to 2% of max
 |logit| (and 99% argmax agreement) against the single-device forward.
+Each sharded step is also taken with the loss composed as it was before
+the head had its kernel pair (`_nll_sum_before`): the same loss and
+gradients, bit for bit.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -59,24 +64,34 @@ def _unshard(tree, cfg, mesh) -> list:
     return out
 
 
+def _nll_sum_before(params, x, targets, ax):
+    """`workload._nll_sum` before the head had its kernel pair: the f32
+    logits of `_head`, sliced, log-softmax, gather, sum."""
+    logprobs = torch.log_softmax(tw._head(params, x, ax)[:, :targets.shape[1]],
+                                 dim=-1)
+    return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
+
+
 def _worker(rank, _mesh, np_params, np_tokens):
     """Every case on its own mesh over the 4 ranks: one training step (loss
-    and whole gradients) and the serving forwards (this rank's logits
-    block and its place)."""
+    and whole gradients), the same step with `_nll_sum_before`, and the
+    serving forwards (this rank's logits block and its place)."""
     from tpu_device_plugin_torch.validator.mesh import slice_mesh
     cfg = tw.ModelConfig(**SMALL)
     tokens = torch.from_numpy(np.array(np_tokens))
-    steps, serving = [], []
+    steps, serving, before = [], [], []
     for (dp, sp, tp), attention in CASES:
         mesh = slice_mesh(4, tp=tp, sp=sp, device_type="cpu")
-        params = tw.shard_params(tw.params_from_jax(np_params, "cpu"), cfg,
-                                 mesh)
-        momentum = tw._with_leaves(params, [torch.zeros_like(p)
-                                            for p in tw._leaves(params)])
-        rows = tw._token_rows(tokens, mesh)
-        _, momentum, loss = tw.sgd_step(params, momentum, rows, cfg,
-                                        attention, mesh)
-        steps.append((loss.item(), _unshard(momentum, cfg, mesh)))
+        for nll_sum, out in ((tw._nll_sum, steps), (_nll_sum_before, before)):
+            params = tw.shard_params(tw.params_from_jax(np_params, "cpu"),
+                                     cfg, mesh)
+            momentum = tw._with_leaves(params, [torch.zeros_like(p)
+                                                for p in tw._leaves(params)])
+            rows = tw._token_rows(tokens, mesh)
+            with mock.patch.object(tw, "_nll_sum", nll_sum):
+                _, momentum, loss = tw.sgd_step(params, momentum, rows, cfg,
+                                                attention, mesh)
+            out.append((loss.item(), _unshard(momentum, cfg, mesh)))
     for (dp, sp, tp), attention in SERVING:
         mesh = slice_mesh(4, tp=tp, sp=sp, device_type="cpu")
         params = tw.shard_params(tw.params_from_jax(np_params, "cpu"), cfg,
@@ -93,7 +108,7 @@ def _worker(rank, _mesh, np_params, np_tokens):
         flash_refused = ""
     except ValueError as exc:
         flash_refused = str(exc)
-    return steps, serving, flash_refused
+    return steps, serving, flash_refused, before
 
 
 @pytest.fixture(scope="module")
@@ -187,7 +202,7 @@ def test_sharded_forward_matches_single_device(case, port_runs):
     per_rank, _, ref = port_runs
     rows, width = SMALL["batch"] // dp, SMALL["seq_len"] // sp
     logits = np.full_like(ref, np.nan)
-    for _, serving, flash_refused in per_rank:
+    for _, serving, flash_refused, _ in per_rank:
         assert "flash attention requires sp == 1" in flash_refused
         i, j, block = serving[case]
         got = logits[i * rows:(i + 1) * rows, j * width:(j + 1) * width]
@@ -198,3 +213,15 @@ def test_sharded_forward_matches_single_device(case, port_runs):
     assert np.abs(logits - ref).max() <= LOGIT_REL_TOL * np.abs(ref).max()
     agree = (logits.argmax(-1) == ref.argmax(-1)).mean()
     assert agree >= ARGMAX_AGREE_MIN
+
+
+@pytest.mark.parametrize("case", range(len(CASES)),
+                         ids=[f"{a}-dp{m[0]}sp{m[1]}tp{m[2]}" for m, a in CASES])
+def test_sharded_step_unchanged_by_the_head_split(case, port_runs):
+    per_rank, _, _ = port_runs
+    for steps, _, _, before in per_rank:
+        (loss, grads), (ref_loss, ref_grads) = steps[case], before[case]
+        assert loss == ref_loss
+        assert len(grads) == len(ref_grads) == 8
+        for g, r in zip(grads, ref_grads):
+            np.testing.assert_array_equal(g, r)

@@ -5,7 +5,8 @@ proof that the slice actually *works* comes from inside the guest. This
 package is that proof on an NVIDIA card: it enumerates the CUDA device and
 trains (or serves) a transformer whose attention goes through hand-written
 flash-attention kernels (csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
-backward). Run it in the guest:
+backward) and whose training loss goes through a fused log-softmax/NLL
+kernel pair (csrc/xent.cu). Run it in the guest:
 
     python -m tpu_device_plugin_torch.validator --mode train --preset mfu
 

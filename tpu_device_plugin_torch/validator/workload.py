@@ -10,8 +10,10 @@ cross-entropy, and SGD with momentum, on one device or on a
   `layers.{wq,wk,wv,wo,w1,w2}` (MoE: `wr,w1e,w2e` for `w1,w2`); weights
   from the JAX package load with `params_from_jax`.
 - Every matmul runs in bfloat16 (weights are cast at the matmul, as the
-  JAX forward does); RMSNorm and the logits are float32; params, grads
-  and momentum are float32.
+  JAX forward does); RMSNorm and the served logits are float32; params,
+  grads and momentum are float32. The training loss takes the bf16 logits
+  and computes the log-softmax in float32 (xent.py: the CUDA kernel pair,
+  its plain version on the CPU).
 - Attention is `flash` (the CUDA kernels in csrc/, forward and backward;
   their plain versions on the CPU), `ring` (ring_attention.py, over sp) or
   `einsum`.
@@ -52,7 +54,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import tracing
+from . import tracing, xent
 from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
                           pipe_send, queue_offsets)
 from .mesh import mesh_shape
@@ -423,12 +425,19 @@ def _layers(x: torch.Tensor, layers: Params, cfg: ModelConfig,
 def _head(params: Params, x: torch.Tensor,
           ax: Optional[_Axes]) -> torch.Tensor:
     """f32 logits from the last layer's residual stream."""
+    return _logits(params, x, ax).float()
+
+
+def _logits(params: Params, x: torch.Tensor,
+            ax: Optional[_Axes]) -> torch.Tensor:
+    """bf16 logits from the last layer's residual stream: the final
+    RMSNorm and the unembedding."""
     x = _rms_norm(x)
     if ax is not None:
         # unembed is row-sharded: each rank multiplies its d-slice
         width = params["unembed"].shape[0]
         x = enter(x, ax.group["tp"]).narrow(-1, ax.index["tp"] * width, width)
-    return _row_sharded(x, params["unembed"], ax).float()
+    return _row_sharded(x, params["unembed"], ax)
 
 
 def _send_on(x: torch.Tensor, ax: _Axes) -> torch.Tensor:
@@ -486,11 +495,10 @@ def _nll_sum(params: Params, x: torch.Tensor, targets: torch.Tensor,
              ax: Optional[_Axes]) -> torch.Tensor:
     """The summed next-token NLL of the last layer's residual stream x
     against `targets`, which may be one position shorter than x (the last
-    global position predicts nothing)."""
+    global position predicts nothing): `xent.nll_sum` of the bf16 logits,
+    the kernel pair on a CUDA tensor."""
     with tracing.span("workload.head"):
-        logits = _head(params, x, ax)
-        logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
-        nll = -torch.gather(logprobs, -1, targets[..., None].long()).sum()
+        nll = xent.nll_sum(_logits(params, x, ax), targets)
         return tracing.backward("workload.head", x, nll)
 
 
