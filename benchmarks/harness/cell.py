@@ -29,8 +29,8 @@ it touches), `warmup` (the rest of the warm-up) and `profiler` (starting
 the trace). run.py prints them on standard error.
 
 After the window: the peak memory is read, the port's state is freed, and
-the reference (reference.py, from the same seed and inputs) decides
-`correct`.
+the reference of the configuration's definition (block.py), from the same
+seed and inputs, decides `correct`.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import checks, reference
-from .inputs import flatten, leaf_shapes, make_leaf, make_params, nest
+from . import checks
+from .inputs import flatten, make_leaf, make_params, nest
 from .metrics import View
 from .peaks import lookup
 from .program import Port
@@ -97,8 +97,8 @@ class Laps:
 
 
 def follow(step, steps: int, params: Dict[str, torch.Tensor],
-           momentum: Dict[str, torch.Tensor], model: dict, seed: int,
-           device) -> dict:
+           momentum: Dict[str, torch.Tensor], definition, model: dict,
+           seed: int, device) -> dict:
     """Drive `step(i) -> loss` through the `steps` followed steps and read
     what the check compares from the state: flat `params` and `momentum`
     are views of the state that `step` updates in place."""
@@ -109,23 +109,27 @@ def follow(step, steps: int, params: Dict[str, torch.Tensor],
             grad = checks.leaf_norms(momentum)
     update: Dict[str, float] = {}
     for name, p in params.items():
-        start = make_leaf(model, name, seed, device)
+        start = make_leaf(definition, model, name, seed, device)
         update.update(checks.leaf_norms({name: p - start}))
         del start
     return {"losses": losses, "grad": grad, "update": update}
 
 
-def train_reference(model: dict, seed: int, device, batches,
-                    routes: List[Optional[reference.Routes]]) -> dict:
-    """The f32 reference through the followed steps, on the same weights
-    and batches; a MoE follows the routes the program recorded."""
-    params = {n: make_leaf(model, n, seed, device) for n in leaf_shapes(model)}
+def train_reference(definition, model: dict, seed: int, device, batches,
+                    routes: list) -> dict:
+    """The definition's f32 reference through the followed steps, on the
+    same weights and batches; a block that routes follows the routes the
+    program recorded."""
+    params = {n: make_leaf(definition, model, n, seed, device)
+              for n in definition.leaf_shapes(model)}
     momentum = {n: torch.zeros_like(p) for n, p in params.items()}
-    given = [None if r is None else reference.Routes(r.by_layer, follow=True)
+    given = [None if r is None
+             else definition.new_routes(model, r.by_layer, follow=True)
              for r in routes]
-    out = follow(lambda i: reference.sgd_step(params, momentum, batches[i],
-                                              model, "f32", given[i]),
-                 len(batches), params, momentum, model, seed, device)
+    out = follow(lambda i: definition.sgd_step(params, momentum, batches[i],
+                                               model, "f32", given[i]),
+                 len(batches), params, momentum, definition, model, seed,
+                 device)
     if routes[0] is not None:
         out["route_gap"] = max(r.gap for r in given)
     del params, momentum
@@ -143,7 +147,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
         laps.mark("cuda_context")
-    port = port or Port(cell.model, device)
+    port = port or Port(cell.definition, cell.model, device)
     laps.mark("port_import")
     tracer = Tracer(trace, device)
     kind = cell.mix["kind"]
@@ -158,15 +162,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
 
 
 def _train(cell, seed, seconds, device, laps, port, tracer, ref_cache):
-    model = cell.model
-    params = make_params(model, seed, device)
+    model, definition = cell.model, cell.definition
+    params = make_params(definition, model, seed, device)
     momentum = nest({n: torch.zeros_like(p)
                      for n, p in flatten(params).items()})
     laps.mark("weights")
     plan = make_plan(cell.mix, model, seed, device)
     followed = cell.mix.get("followed", FOLLOWED_STEPS)
-    routes = [reference.Routes() if model.get("n_experts") else None
-              for _ in range(followed)]
+    routes = [definition.new_routes(model) for _ in range(followed)]
     laps.mark("inputs")
 
     def step(i):
@@ -175,8 +178,8 @@ def _train(cell, seed, seconds, device, laps, port, tracer, ref_cache):
             laps.mark("first_step")
         return loss
 
-    got = follow(step, followed, flatten(params), flatten(momentum), model,
-                 seed, device)
+    got = follow(step, followed, flatten(params), flatten(momentum),
+                 definition, model, seed, device)
     laps.mark("warmup")
     b, s = plan.batch, plan.seq
     losses: List[float] = []
@@ -206,11 +209,12 @@ def _train(cell, seed, seconds, device, laps, port, tracer, ref_cache):
             r.by_layer = {k: v.clone() for k, v in r.by_layer.items()}
     _free(device)
     began = time.perf_counter()
-    # a MoE reference follows this run's routes: nothing to share
+    # a reference that follows this run's routes: nothing to share
     key = None if routes[0] is not None else (cell.name, seed)
     ref = (ref_cache or {}).get(key)
     if ref is None:
-        ref = train_reference(cell.model, seed, device, batches, routes)
+        ref = train_reference(definition, model, seed, device, batches,
+                              routes)
         if ref_cache is not None and key is not None:
             ref_cache[key] = ref
     window["numbers"] = checks.train_numbers(got, ref)
@@ -220,8 +224,8 @@ def _train(cell, seed, seconds, device, laps, port, tracer, ref_cache):
 
 
 def _score(cell, seed, seconds, device, laps, port, tracer):
-    model = cell.model
-    params = make_params(model, seed, device)
+    model, definition = cell.model, cell.definition
+    params = make_params(definition, model, seed, device)
     laps.mark("weights")
     plan = make_plan(cell.mix, model, seed, device)
     b = plan.batch
@@ -283,12 +287,12 @@ def _score(cell, seed, seconds, device, laps, port, tracer):
     del params
     _free(device)
     began = time.perf_counter()
-    ref_params = {n: make_leaf(model, n, seed, device)
-                  for n in leaf_shapes(model)}
+    ref_params = {n: make_leaf(definition, model, n, seed, device)
+                  for n in definition.leaf_shapes(model)}
     numbers: Dict[str, float] = {}
     for j in plan.sample:
         tokens = plan.prompt(j).to(device)
-        ref_logits = reference.logits(ref_params, tokens, model)
+        ref_logits = definition.logits(ref_params, tokens, model, "f32")
         for name, value in checks.score_numbers(*answers[j], ref_logits,
                                                 tokens).items():
             numbers[name] = max(numbers.get(name, -math.inf), value)
@@ -319,8 +323,8 @@ def _outcome(cell, trace: bool, device, tracer, window) -> Outcome:
     if trace:
         began = time.perf_counter()
         events = tracer.events()
-        view = View(cell.mix["kind"], cell.model, window["units"], events,
-                    lookup(name))
+        view = View(cell.mix["kind"], cell.model, cell.definition,
+                    window["units"], events, lookup(name))
         dev["busy_s"] = view.busy_s
         dev["window_s"] = view.window_s
         for metric in cell.per_layer:

@@ -9,9 +9,11 @@ of the reference leaf's norm and the median leaf's. A leaf is a layer's
 slice of a stacked weight, or `embed`, or `unembed`. Leaves whose
 reference gradient is under a thousandth of the median leaf's are left
 out of `update_gap`: they move by round-off alone. `grad_gap_median` and
-`update_gap_median` are the median leaf's gaps. A MoE's reference follows
-the program's routes (reference.Routes); `route_gap` is the widest margin
-by which the reference's router put another expert first.
+`update_gap_median` are the median leaf's gaps. The reference of a block
+that routes follows the program's routes (the definition's `new_routes`;
+reference.Routes for the port's MoE); `route_gap` is the routes' `gap`,
+for the port's MoE the widest margin by which the reference's router put
+another expert first.
 
 Scoring (the sampled requests, every position of every prompt):
 `top1_gap`, the widest gap by which the reference's logit of the token

@@ -1,17 +1,17 @@
 """Weights and token batches, made on the device from `--seed`.
 
-Weights are in the port's layout (`embed`, `unembed`, `layers.{wq,wk,wv,
-wo}` and `layers.{w1,w2}` or, for MoE, `layers.{wr,w1e,w2e}`, stacked on
-the layer dim), f32, N(0, 1) * d_model ** -0.5. Each leaf comes from its
-own generator, seeded from the run's seed and the leaf's name, in one
-call: any leaf can be made again alone, which is how the reference and
-the check of the parameters' change get the initial weights.
+Weights are the leaves that the configuration's definition names
+(`leaf_shapes`; block.py for the port's block), f32, N(0, 1) times the
+definition's `leaf_scale`. Each leaf comes from its own generator, seeded
+from the run's seed and the leaf's name, in one call: any leaf can be
+made again alone, which is how the reference and the check of the
+parameters' change get the initial weights.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -27,27 +27,13 @@ def generator(seed: int, label: str, device) -> torch.Generator:
         subseed(seed, label))
 
 
-def leaf_shapes(model: dict) -> Dict[str, Tuple[int, ...]]:
-    """Dotted leaf name -> shape, in the port's layout."""
-    v, d, ff = model["vocab"], model["d_model"], model["d_ff"]
-    n, e = model["n_layers"], model.get("n_experts", 0)
-    shapes = {"embed": (v, d), "unembed": (d, v),
-              "layers.wq": (n, d, d), "layers.wk": (n, d, d),
-              "layers.wv": (n, d, d), "layers.wo": (n, d, d)}
-    if e:
-        shapes.update({"layers.wr": (n, d, e), "layers.w1e": (n, e, d, ff),
-                       "layers.w2e": (n, e, ff, d)})
-    else:
-        shapes.update({"layers.w1": (n, d, ff), "layers.w2": (n, ff, d)})
-    return shapes
-
-
-def make_leaf(model: dict, name: str, seed: int, device) -> torch.Tensor:
-    shape = leaf_shapes(model)[name]
+def make_leaf(definition, model: dict, name: str, seed: int,
+              device) -> torch.Tensor:
+    shape = definition.leaf_shapes(model)[name]
     leaf = torch.randn(shape, generator=generator(seed, "weights:" + name,
                                                   device),
                        dtype=torch.float32, device=device)
-    return leaf.mul_(model["d_model"] ** -0.5)
+    return leaf.mul_(definition.leaf_scale(model, name))
 
 
 def nest(flat: Dict[str, torch.Tensor]) -> dict:
@@ -73,7 +59,7 @@ def flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_params(model: dict, seed: int, device) -> dict:
+def make_params(definition, model: dict, seed: int, device) -> dict:
     """The whole parameter tree, nested as the port takes it."""
-    return nest({name: make_leaf(model, name, seed, device)
-                 for name in leaf_shapes(model)})
+    return nest({name: make_leaf(definition, model, name, seed, device)
+                 for name in definition.leaf_shapes(model)})

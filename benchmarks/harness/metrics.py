@@ -10,9 +10,10 @@ the kind of cell it reads in.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import ModuleType
 from typing import List, Optional, Tuple
 
-from . import counts
+from .counts import bound_s
 from .peaks import Peak
 from .trace import FLASH, Events
 
@@ -21,6 +22,8 @@ from .trace import FLASH, Events
 class View:
     kind: str                             # "train" or "score"
     model: dict                           # the configuration's model block
+    definition: ModuleType                # its definition (block.py): the
+    #                                       counts below are its own
     units: List[Tuple[int, int, str]]     # (batch, seq, attention mode) of
     #                                       each step or request in the window
     events: Events
@@ -41,45 +44,48 @@ class View:
 
 
 def mfu(view: View, kind: str) -> Optional[float]:
-    """The model FLOPs of every step or request of the window (counts.py:
-    matmuls only, causal attention once) over the window's time, as a
-    share (%) of the card's bf16 peak."""
+    """The model FLOPs of every step or request of the window (the
+    definition's `model_flops`; the port's block's, counts.py: matmuls
+    only, causal attention once) over the window's time, as a share (%) of
+    the card's bf16 peak."""
     if view.kind != kind or not view.units or view.peak is None:
         return None
-    flops = sum(counts.model_flops(view.model, b, s, train=kind == "train")
+    flops = sum(view.definition.model_flops(view.model, b, s,
+                                            train=kind == "train")
                 for b, s, _ in view.units)
     return 100.0 * flops / view.window_s / view.peak.bf16_flops
 
 
 def gemm_roofline(view: View, kind: str) -> Optional[float]:
     """The least time of every matmul that cuBLAS runs in the window, at
-    the shapes it runs them (counts.gemm_work), over the device time of
-    the matmul kernels (trace.py's `gemm` group), as a share (%)."""
+    the shapes it runs them (the definition's `gemm_work`), over the
+    device time of the matmul kernels (trace.py's `gemm` group), as a
+    share (%)."""
     if view.kind != kind or not view.units or view.peak is None:
         return None
     spent = view.seconds("gemm")
     if spent <= 0:
         return None
-    bound = sum(counts.bound_s(counts.gemm_work(view.model, b, s, mode,
-                                                train=kind == "train"),
-                               view.peak)
+    bound = sum(bound_s(view.definition.gemm_work(view.model, b, s, mode,
+                                                  train=kind == "train"),
+                        view.peak)
                 for b, s, mode in view.units)
     return 100.0 * bound / spent
 
 
 def flash_roofline(view: View, kind: str) -> Optional[float]:
     """The least time of the attention work that the flash kernels run in
-    the window (counts.attention_work: causal FLOPs, inputs read and
-    outputs written once; forward, and backward in training), over the
-    device time of K1 to K3, as a share (%). Steps or requests that take
-    einsum attention are not counted."""
+    the window (the definition's `attention_work`; the port's block's:
+    causal FLOPs, inputs read and outputs written once; forward, and
+    backward in training), over the device time of K1 to K3, as a share
+    (%). Steps or requests that take einsum attention are not counted."""
     if view.kind != kind or view.peak is None:
         return None
     spent = view.seconds(*FLASH)
     flash = [(b, s) for b, s, mode in view.units if mode == "flash"]
     if spent <= 0 or not flash:
         return None
-    bound = sum(counts.bound_s(counts.attention_work(
+    bound = sum(bound_s(view.definition.attention_work(
         view.model, b, s, train=kind == "train"), view.peak)
         for b, s in flash)
     return 100.0 * bound / spent

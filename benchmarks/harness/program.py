@@ -5,33 +5,33 @@
 step that `build_workload` returns) and the serving forward
 `workload.forward`, with the attention mode that the port's own rule
 (`workload._resolve`: flash from `FLASH_MIN_SEQ` on, on CUDA) picks for
-each (batch, seq).
+each (batch, seq). While a training step records routes, the
+configuration's definition (block.py) records the port's into them.
 
 The others stand in its place for the checks of the check: `Control`,
-the reference computed a precision below the port's; and the faults a
-cell can have, each planted in the port's timed path: `Unchanged` (a
-step that leaves the state as it was), `HalfBatch` (half of the batch
-left out, the mean taken over the rest; a scoring request's left-out
-prompts answered with the others' logits) and `AlteredAnswer` (one
-prompt's logits, the first of each request, altered where they are
+the definition's reference computed a precision below the port's; and
+the faults a cell can have, each planted in the port's timed path:
+`Unchanged` (a step that leaves the state as it was), `HalfBatch` (half
+of the batch left out, the mean taken over the rest; a scoring request's
+left-out prompts answered with the others' logits) and `AlteredAnswer`
+(one prompt's logits, the first of each request, altered where they are
 produced).
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from . import reference
 from .inputs import flatten
 
 
 class Port:
-    def __init__(self, model: dict, device):
+    def __init__(self, definition, model: dict, device):
         from tpu_device_plugin_torch.validator import workload
         self._w = workload
+        self._definition = definition
         self._model = model
         self._device = torch.device(device)
         self._cfgs: Dict[Tuple[int, int], tuple] = {}
@@ -47,34 +47,13 @@ class Port:
     def attention(self, batch: int, seq: int) -> str:
         return self._cfg(batch, seq)[1]
 
-    @contextlib.contextmanager
-    def _recording(self, routes: Optional[reference.Routes]):
-        """Records the MoE's top-1 route of each layer into `routes` by
-        wrapping the port's `workload._route` for the duration (the
-        followed steps only: the window never records)."""
-        if routes is None or not self._model.get("n_experts"):
-            yield
-            return
-        original, taken = self._w._route, []
-
-        def recording(xt, wr):
-            gate, top1 = original(xt, wr)
-            taken.append(top1)
-            return gate, top1
-
-        self._w._route = recording
-        try:
-            yield
-        finally:
-            self._w._route = original
-        routes.by_layer.update(enumerate(taken))
-
     def step(self, params: dict, momentum: dict, tokens: torch.Tensor,
-             routes: Optional[reference.Routes] = None) -> torch.Tensor:
+             routes=None) -> torch.Tensor:
         """One training step, params and momentum updated in place; the
-        loss before the update. `routes` records the MoE's routes."""
+        loss before the update. `routes` (the followed steps only: the
+        window never records) records the port's routes."""
         cfg, mode = self._cfg(*tokens.shape)
-        with self._recording(routes):
+        with self._definition.record(self._w, routes):
             return self._w.sgd_step(params, momentum, tokens, cfg, mode)[2]
 
     def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -84,25 +63,28 @@ class Port:
 
 
 class Control(Port):
-    """The reference in the port's place, at `precision` ("fp8")."""
+    """The definition's reference in the port's place, at `precision`
+    ("fp8")."""
 
-    def __init__(self, model: dict, device, precision: str = "fp8"):
-        super().__init__(model, device)
+    def __init__(self, definition, model: dict, device,
+                 precision: str = "fp8"):
+        super().__init__(definition, model, device)
         self.precision = precision
 
     def step(self, params, momentum, tokens, routes=None):
-        return reference.sgd_step(flatten(params), flatten(momentum), tokens,
-                                  self._model, self.precision, routes)
+        return self._definition.sgd_step(flatten(params), flatten(momentum),
+                                         tokens, self._model, self.precision,
+                                         routes)
 
     def forward(self, params, tokens):
-        return reference.logits(flatten(params), tokens, self._model,
-                                self.precision)
+        return self._definition.logits(flatten(params), tokens, self._model,
+                                       self.precision)
 
 
 class Unchanged(Port):
     def step(self, params, momentum, tokens, routes=None):
         cfg, mode = self._cfg(*tokens.shape)
-        with torch.no_grad(), self._recording(routes):
+        with torch.no_grad(), self._definition.record(self._w, routes):
             return self._w.loss_fn(params, tokens, cfg, mode)
 
 

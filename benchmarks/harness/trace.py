@@ -11,9 +11,11 @@ profiler's timestamps are given in: `bench.make_inputs`,
 `bench.enqueue_step`, `bench.enqueue_request`, `bench.sync`,
 `bench.keep_answer`, and `bench.window` around the whole measured window.
 
-Kernel groups by name, as `scripts/profile_torch_step.py` groups them: K1
-`flash_fwd`, K2 `flash_bwd_dkv`, K3 `flash_bwd_dq`, `gemm` (cuBLAS and
-CUTLASS matmuls and matrix-vector products), `other`.
+Kernels are grouped by a mark in their names: the port's flash attention
+kernels K1 `flash_fwd`, K2 `flash_bwd_dkv` and K3 `flash_bwd_dq`; `gemm`,
+the matmuls and matrix-vector products of cuBLAS and CUTLASS; and
+`other`, everything else (norms, activations, casts, copies, the MoE
+dispatch, the loss, the SGD update).
 """
 
 from __future__ import annotations

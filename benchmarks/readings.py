@@ -56,9 +56,9 @@ def main(argv=None) -> int:
     ref_cache: dict = {}
     for who, make, seed in runs:
         began = time.perf_counter()
+        port = make(cell.definition, cell.model, "cuda")
         outcome = cell_run.run(cell, seed, args.seconds, False, "cuda",
-                               began, port=make(cell.model, "cuda"),
-                               ref_cache=ref_cache)
+                               began, port=port, ref_cache=ref_cache)
         print(json.dumps({
             "workload": cell.name, "who": who, "seed": seed,
             "numbers": outcome.numbers, "worst_leaves": outcome.detail,

@@ -92,7 +92,7 @@ def split(cell, seed: int, seconds: float, record: bool, device,
 
     device = torch.device(device)
     laps = cell_run.Laps(t0, device)
-    port = Port(cell.model, device)
+    port = Port(cell.definition, cell.model, device)
     tracer = _tracer_class()(True, device, record)
     if cell.mix["kind"] == "train":
         window = cell_run._train(cell, seed, seconds, device, laps, port,

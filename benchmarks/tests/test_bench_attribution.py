@@ -14,7 +14,7 @@ from collections import namedtuple
 import pytest
 import torch
 
-from harness import attribution, metrics
+from harness import attribution, block, metrics
 from harness.peaks import lookup
 from harness.spec import load_cell
 from harness.trace import read_events
@@ -128,7 +128,8 @@ def test_the_modules_and_the_remainder_add_up_to_nongemm():
         "attention": 2.0, "ffn": 4.0, "root": 0.5, "outside": 3.0,
         "sgd": 3.5, "unmatched": 1.0})
     events = read_events(_raw(), BENCH_SPANS)
-    view = metrics.View("train", {}, [(1, 1, "flash")] * 2, events, None)
+    view = metrics.View("train", {}, block, [(1, 1, "flash")] * 2, events,
+                        None)
     assert sum(other.values()) == pytest.approx(metrics.nongemm_ms(view))
 
 
@@ -146,7 +147,8 @@ def test_every_reader_reads_the_same_with_the_ports_spans_beside():
     joined = read_events(_raw(), BENCH_SPANS)
     joined.spans += [(s.name, s.start_ns, s.end_ns) for s in SPANS]
     for kind in ("train", "score"):
-        views = [metrics.View(kind, model, [(8, 2048, "flash")] * 2, ev, peak)
+        views = [metrics.View(kind, model, block, [(8, 2048, "flash")] * 2,
+                              ev, peak)
                  for ev in (plain, joined)]
         for read in (lambda v: metrics.mfu(v, kind),
                      lambda v: metrics.gemm_roofline(v, kind),

@@ -30,7 +30,8 @@ def checkout(tmp_path_factory):
 def _run(checkout, name, seed=7, trace=False, port_class=None,
          seconds=0.2):
     found = load_cell(name, checkout)
-    port = port_class(found.model, "cpu") if port_class else None
+    port = (port_class(found.definition, found.model, "cpu") if port_class
+            else None)
     return cell.run(found, seed, seconds, trace, "cpu", time.perf_counter(),
                     port=port)
 

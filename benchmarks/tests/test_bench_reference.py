@@ -7,7 +7,7 @@ import math
 import pytest
 import torch
 
-from harness import checks, reference
+from harness import block, checks, reference
 from harness.inputs import flatten, make_params
 from harness.program import Port
 
@@ -24,9 +24,9 @@ def _tokens(seed, shape=(4, 16)):
 @pytest.mark.parametrize("model", [DENSE, MOE], ids=["dense", "moe"])
 def test_reference_logits_agree_with_the_port(model):
     torch.manual_seed(0)
-    params = make_params(model, 3, "cpu")
+    params = make_params(block, model, 3, "cpu")
     tokens = _tokens(4)
-    port = Port(model, "cpu").forward(params, tokens)
+    port = Port(block, model, "cpu").forward(params, tokens)
     ref = reference.logits(flatten(params), tokens, model)
     assert port.shape == ref.shape == (4, 16, 64)
     # bf16 products against f32: a few bf16 ulps of logits of size ~1
@@ -40,14 +40,14 @@ def test_reference_logits_agree_with_the_port(model):
 
 @pytest.mark.parametrize("model", [DENSE, MOE], ids=["dense", "moe"])
 def test_reference_step_agrees_with_the_port_on_the_programs_routes(model):
-    params = make_params(model, 5, "cpu")
+    params = make_params(block, model, 5, "cpu")
     momentum = {k: torch.zeros_like(v) for k, v in flatten(params).items()}
     ref_params = {k: v.clone() for k, v in flatten(params).items()}
     ref_momentum = {k: torch.zeros_like(v) for k, v in ref_params.items()}
     tokens = _tokens(6)
     routes = reference.Routes() if model["n_experts"] else None
-    loss = Port(model, "cpu").step(params, _nest(momentum, params), tokens,
-                                   routes)
+    loss = Port(block, model, "cpu").step(params, _nest(momentum, params),
+                                          tokens, routes)
     given = None if routes is None else reference.Routes(routes.by_layer,
                                                          follow=True)
     ref_loss = reference.sgd_step(ref_params, ref_momentum, tokens, model,

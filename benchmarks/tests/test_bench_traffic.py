@@ -7,6 +7,7 @@ from statistics import NormalDist, median
 
 import torch
 
+from harness import block
 from harness.inputs import make_leaf, make_params, subseed
 from harness.traffic import cycle_lengths, make_plan
 
@@ -82,10 +83,11 @@ def test_plans_are_deterministic_in_the_seed():
 
 
 def test_weights_are_made_again_leaf_by_leaf_from_the_seed():
-    params = make_params(MODEL, 2 ** 33 + 1, "cpu")
-    again = make_leaf(MODEL, "layers.w1", 2 ** 33 + 1, "cpu")
+    params = make_params(block, MODEL, 2 ** 33 + 1, "cpu")
+    again = make_leaf(block, MODEL, "layers.w1", 2 ** 33 + 1, "cpu")
     assert torch.equal(params["layers"]["w1"], again)
-    assert not torch.equal(make_leaf(MODEL, "layers.w1", 2, "cpu"), again)
+    assert not torch.equal(make_leaf(block, MODEL, "layers.w1", 2, "cpu"),
+                           again)
     assert params["embed"].std().item() == \
         pytest_approx(MODEL["d_model"] ** -0.5)
     assert subseed(-1, "x") != subseed(1, "x")
