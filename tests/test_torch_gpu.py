@@ -528,3 +528,28 @@ def test_training_head_goes_through_the_kernels(cuda_device, n_experts):
         logits = workload.forward(params, tokens, cfg, "flash")
     assert logits.dtype == torch.float32
     assert xent.launches == {k: n + 3 for k, n in before.items()}
+
+
+@pytest.mark.gpu
+def test_hybrid_block_on_card_matches_the_reference(cuda_device):
+    """The tiny LFM2 block (tests/torch_lfm2_tiny.py) through K1-K3 and
+    `torch._grouped_mm` on the card against the definition's f32
+    reference there (TF32 off), following the port's routes: the CPU
+    test's bounds, which the fp8 control fails."""
+    import torch_lfm2_tiny as tiny
+    params, tokens = tiny.inputs(2 ** 31 + 21, cuda_device)
+    before = dict(fa.launches)
+    loss, grad, new, routes = tiny.port_step(workload, params, tokens,
+                                             "flash")
+    attention_layers = tiny.MODEL["layer_types"].count("attention")
+    for name in fa.launches:
+        assert fa.launches[name] == before[name] + attention_layers, name
+    ref = tiny.reference_step(params, tokens, routes)
+    gaps = tiny.step_gaps((loss, grad, new), ref[:3], params)
+    assert gaps["loss"] <= tiny.LOSS_TOL, gaps
+    assert gaps["grad"] <= tiny.GRAD_TOL, gaps
+    assert gaps["update"] <= tiny.GRAD_TOL, gaps
+    assert ref[3] < 0.02
+    control = tiny.reference_step(params, tokens, routes, "fp8")
+    assert tiny.step_gaps(control[:3], ref[:3], params)["grad"] \
+        > tiny.GRAD_TOL

@@ -64,11 +64,11 @@ def _unshard(tree, cfg, mesh) -> list:
     return out
 
 
-def _nll_sum_before(params, x, targets, ax):
+def _nll_sum_before(params, x, targets, ax, cfg):
     """`workload._nll_sum` before the head had its kernel pair: the f32
     logits of `_head`, sliced, log-softmax, gather, sum."""
-    logprobs = torch.log_softmax(tw._head(params, x, ax)[:, :targets.shape[1]],
-                                 dim=-1)
+    logits = tw._head(params, x, ax, cfg)
+    logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
     return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
 
 

@@ -16,6 +16,8 @@ measured on a CPU, where the JAX package's own flash and einsum
 gradients differ by up to 1.3% per leaf).
 """
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -94,6 +96,36 @@ def test_remat_gives_the_same_loss_and_grads(attention):
         assert (g - r).abs().max().item() <= 1e-6
     # the caller's params never become autograd leaves
     assert not any(p.requires_grad for p in tw._leaves(params))
+
+
+@pytest.mark.parametrize("enabled", [True, False],
+                         ids=["collector_on", "collector_off"])
+def test_sgd_step_pauses_the_collector_and_restores_it(monkeypatch, enabled):
+    """No automatic garbage collection while a step builds and runs its
+    graph, and the collector as the caller had it once the step returns,
+    also when the step raises."""
+    cfg = tw.ModelConfig(**CONFIGS["small"])
+    _, params, momentum, tokens = tw.build_workload(cfg, seed=3,
+                                                    device="cpu")
+    seen = []
+    grad = tw.value_and_grad
+
+    def value_and_grad(*args, **kwargs):
+        seen.append(gc.isenabled())
+        return grad(*args, **kwargs)
+
+    monkeypatch.setattr(tw, "value_and_grad", value_and_grad)
+    (gc.enable if enabled else gc.disable)()
+    try:
+        tw.sgd_step(params, momentum, tokens, cfg, "einsum")
+        assert seen == [False]
+        assert gc.isenabled() is enabled
+        with pytest.raises(IndexError):
+            tw.sgd_step(params, momentum, tokens + cfg.vocab, cfg, "einsum")
+        assert seen == [False, False]
+        assert gc.isenabled() is enabled
+    finally:
+        gc.enable()
 
 
 def test_build_workload_is_seeded_with_zero_momentum():

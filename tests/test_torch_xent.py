@@ -32,10 +32,10 @@ def _composition(logits, targets):
     return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
 
 
-def _nll_sum_before(params, x, targets, ax):
+def _nll_sum_before(params, x, targets, ax, cfg):
     """`workload._nll_sum` before the head had its kernel pair."""
-    logprobs = torch.log_softmax(tw._head(params, x, ax)[:, :targets.shape[1]],
-                                 dim=-1)
+    logits = tw._head(params, x, ax, cfg)
+    logprobs = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
     return -torch.gather(logprobs, -1, targets[..., None].long()).sum()
 
 
@@ -117,7 +117,7 @@ def test_forward_still_returns_f32_logits():
     x = tw._stage(params, tokens, cfg, "einsum", None)
     logits = tw.forward(params, tokens, cfg, "einsum")
     assert logits.dtype == torch.float32
-    assert torch.equal(logits, tw._logits(params, x, None).float())
+    assert torch.equal(logits, tw._logits(params, x, None, cfg).float())
 
 
 def test_cpu_path_counts_no_fused_rows():

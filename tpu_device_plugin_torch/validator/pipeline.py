@@ -243,7 +243,8 @@ def _schedule(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             x.requires_grad_(backward)
         y = _stage_apply(x, params["layers"], cfg)
         if last:
-            y = _nll_sum(params, y, rows[:, 1:], None) / (b * dp * (seq - 1))
+            y = (_nll_sum(params, y, rows[:, 1:], None, cfg)
+                 / (b * dp * (seq - 1)))
             local = local + y.detach()
         else:
             link.send(y.detach(), link.index + 1)

@@ -5,6 +5,17 @@ multi-head causal attention, GELU MLP or top-1 switch MoE, unembedding,
 cross-entropy, and SGD with momentum, on one device or on a
 (pp, dp, sp, ep, tp) mesh (mesh.py).
 
+A second block, the hybrid one (LFM2's, e.g. LFM2-8B-A1B; chosen by
+`ModelConfig.layer_types`), runs on one device through the same entry
+points: its layers follow `layer_types`, each a gated short convolution
+(`_short_conv`) or grouped-query attention with qk-norm and RoPE
+(`_attention`), then a SwiGLU MLP in the first `n_dense_layers` and a
+dropless top-k MoE with sigmoid scores and a selection bias after them
+(`_moe_dropless`: the experts held, `w1e.shape[0]` from the first, as
+grouped products); RMSNorms with weights (`w = 1 + g`, g the leaf), and
+the head tied to the embedding. Its leaves are stacked by kind under
+`layers.` (`leaf_shapes`).
+
 - Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`,
   stacked on a leading n_layers dim, under `embed`, `unembed` and
   `layers.{wq,wk,wv,wo,w1,w2}` (MoE: `wr,w1e,w2e` for `w1,w2`); weights
@@ -44,8 +55,10 @@ Entry points run on CUDA unless the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -80,6 +93,118 @@ class ModelConfig:
     # recompute each layer's activations in the backward instead of
     # keeping them (torch.utils.checkpoint; the JAX version's jax.checkpoint)
     remat: bool = False
+    # The hybrid block (LFM2's), chosen by `layer_types`: each layer's
+    # token mixer in order, "conv" (a gated short convolution) or
+    # "attention" ("full_attention" too); empty for the block above. Its
+    # MLPs and experts are SwiGLU, its MoE dropless over the top
+    # experts_per_token of sigmoid scores plus a selection bias, its
+    # RMSNorms (one on each query and key head too) have weights, and its
+    # head is tied to the embedding. Its numbers, each at its default in
+    # the block above: key-value heads (0: n_heads); dense layers before the
+    # MoE ones; the experts' width (0: d_ff); experts per token; the
+    # experts held here (0: n_experts, which routing always spans); RoPE's
+    # theta; the norms' eps.
+    layer_types: Tuple[str, ...] = ()
+    n_kv_heads: int = 0
+    n_dense_layers: int = 0
+    expert_d_ff: int = 0
+    experts_per_token: int = 1
+    experts_held: int = 0
+    rope_theta: float = 0.0
+    norm_eps: float = 1e-6
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if not self.hybrid:
+            moved = [f.name for f in fields(self) if f.name in _HYBRID_NUMBERS
+                     and getattr(self, f.name) != f.default]
+            if moved:
+                raise ValueError(f"{moved} belong to the hybrid block, which "
+                                 "layer_types chooses")
+            return
+        kinds = set(self.layer_types) - {"conv", *_ATTENTION}
+        if kinds:
+            raise ValueError(f"unknown layer types {sorted(kinds)}")
+        if len(self.layer_types) != self.n_layers:
+            raise ValueError(f"{len(self.layer_types)} layer_types for "
+                             f"n_layers={self.n_layers}")
+        if self.n_heads % (self.n_kv_heads or self.n_heads):
+            raise ValueError(f"n_heads={self.n_heads} is not a multiple of "
+                             f"n_kv_heads={self.n_kv_heads}")
+        if self.rope_theta <= 0:
+            raise ValueError("the hybrid block needs rope_theta > 0")
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether this is the hybrid block (`layer_types` given)."""
+        return bool(self.layer_types)
+
+    def kinds(self, n: int) -> List[Tuple[str, str]]:
+        """(token mixer, MLP) of each of `n` layers: "attention" or "conv",
+        and "dense" or "moe"."""
+        return [("conv" if self.layer_types and self.layer_types[i] == "conv"
+                 else "attention",
+                 "moe" if self.n_experts and i >= self.n_dense_layers
+                 else "dense") for i in range(n)]
+
+
+_ATTENTION = ("attention", "full_attention")
+_HYBRID_NUMBERS = ("n_kv_heads", "n_dense_layers", "expert_d_ff",
+                   "experts_per_token", "experts_held", "rope_theta",
+                   "norm_eps")
+CONV_TAPS = 3   # the short convolution's taps (LFM2's conv_L_cache)
+# the leaves of each kind of layer (`leaf_shapes`), and of every layer
+_GROUPS = {"attention": ("wq", "wk", "wv", "wo", "q_norm", "k_norm"),
+           "conv": ("conv_in", "conv_w", "conv_out"),
+           "dense": ("w1", "w3", "w2"),
+           "moe": ("wr", "w1e", "w3e", "w2e", "moe_bias"),
+           "every": ("op_norm", "ffn_norm")}
+_GROUP_OF = {key: group for group, keys in _GROUPS.items() for key in keys}
+# norm weights are stored as offsets from 1 and drawn as 0 here; the bias
+# only selects experts
+_ZERO_INIT = ("q_norm", "k_norm", "op_norm", "ffn_norm", "final_norm",
+              "moe_bias")
+
+
+def leaf_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """{dotted leaf name: shape}, in the order `init_params` draws them:
+    `embed`, `unembed` (the block above only), then under `layers.` each
+    kind's leaves stacked on the layers of that kind, and `final_norm`
+    (the hybrid block only). The block above gives `layers.{wq,wk,wv,wo}`
+    and `{w1,w2}` or `{wr,w1e,w2e}`, stacked on all n_layers."""
+    d, ff, e, v = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.vocab
+    dh = d // cfg.n_heads
+    kv = (cfg.n_kv_heads or cfg.n_heads) * dh
+    fe, held = cfg.expert_d_ff or ff, cfg.experts_held or e
+    kinds = cfg.kinds(cfg.n_layers)
+    n = {k: sum(k in pair for pair in kinds)
+         for k in ("attention", "conv", "dense", "moe")}
+    hy = cfg.hybrid
+    shapes: Dict[str, Tuple[int, ...]] = {"embed": (v, d)}
+    if not hy:
+        shapes["unembed"] = (d, v)
+    layers = {
+        "attention": {"wq": (d, d), "wk": (d, kv), "wv": (d, kv),
+                      "wo": (d, d), **({"q_norm": (dh,), "k_norm": (dh,)}
+                                       if hy else {})},
+        "conv": {"conv_in": (d, 3 * d), "conv_w": (CONV_TAPS, d),
+                 "conv_out": (d, d)},
+        "moe": {"wr": (d, e), "w1e": (held, d, fe),
+                **({"w3e": (held, d, fe)} if hy else {}),
+                "w2e": (held, fe, d), **({"moe_bias": (e,)} if hy else {})},
+        "dense": {"w1": (d, ff), **({"w3": (d, ff)} if hy else {}),
+                  "w2": (ff, d)},
+    }
+    if hy:
+        layers["every"] = {"op_norm": (d,), "ffn_norm": (d,)}
+        n["every"] = cfg.n_layers
+    for kind, leaves in layers.items():
+        if n[kind]:
+            shapes.update({f"layers.{key}": (n[kind], *shape)
+                           for key, shape in leaves.items()})
+    if hy:
+        shapes["final_norm"] = (d,)
+    return shapes
 
 
 def resolve_device(device=None) -> torch.device:
@@ -98,26 +223,20 @@ def resolve_device(device=None) -> torch.device:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> Params:
     """f32 weights ~ N(0, 1) * d_model ** -0.5, stacked on n_layers, drawn
-    from `generator` (which must live on `device`)."""
+    from `generator` (which must live on `device`) in `leaf_shapes` order;
+    the hybrid block's norm offsets and expert bias are 0."""
     dev = resolve_device(device)
     scale = cfg.d_model ** -0.5
-    L, d, ff, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
-
-    def dense(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=dev) * scale
-
-    embed, unembed = dense(cfg.vocab, d), dense(d, cfg.vocab)
-    layers = {"wq": dense(L, d, d), "wk": dense(L, d, d),
-              "wv": dense(L, d, d), "wo": dense(L, d, d)}
-    if E:
-        layers["wr"] = dense(L, d, E)
-        layers["w1e"] = dense(L, E, d, ff)
-        layers["w2e"] = dense(L, E, ff, d)
-    else:
-        layers["w1"] = dense(L, d, ff)
-        layers["w2"] = dense(L, ff, d)
-    return {"embed": embed, "unembed": unembed, "layers": layers}
+    params: Params = {}
+    for name, shape in leaf_shapes(cfg).items():
+        *parents, key = name.split(".")
+        if key in _ZERO_INIT:
+            leaf = torch.zeros(shape, device=dev)
+        else:
+            leaf = torch.randn(shape, generator=generator,
+                               dtype=torch.float32, device=dev) * scale
+        (params.setdefault("layers", {}) if parents else params)[key] = leaf
+    return params
 
 
 def params_from_jax(tree, device=None) -> Params:
@@ -169,8 +288,19 @@ class _Axes:
         return self.group[axis], self.index[axis]
 
 
-def _axes(mesh) -> Optional[_Axes]:
-    return None if mesh is None else _Axes(mesh)
+def _one_device(cfg: ModelConfig) -> None:
+    if cfg.hybrid:
+        raise ValueError(
+            "the hybrid block (conv and GQA layers, SwiGLU, dropless top-k "
+            "MoE, tied embeddings) runs on one device: its leaves have no "
+            "mesh sharding")
+
+
+def _axes(mesh, cfg: ModelConfig) -> Optional[_Axes]:
+    if mesh is None:
+        return None
+    _one_device(cfg)
+    return _Axes(mesh)
 
 
 def _row_sharded(x: torch.Tensor, w: torch.Tensor,
@@ -189,17 +319,52 @@ def _row_sharded(x: torch.Tensor, w: torch.Tensor,
     return exit_(partial, ax.group["tp"]).to(torch.bfloat16)
 
 
+def _rotary(s: int, dh: int, theta: float, device) -> Tuple[torch.Tensor,
+                                                            torch.Tensor]:
+    """RoPE's f32 cos and sin, (s, 1, dh): position p turns the pair
+    (i, i + dh/2) by p x theta ** (-2i / dh) (non-interleaved halves)."""
+    inv = theta ** -(torch.arange(0, dh, 2, device=device,
+                                  dtype=torch.float32) / dh)
+    angle = torch.arange(s, device=device, dtype=torch.float32)[:, None] * inv
+    angle = torch.cat([angle, angle], -1)[:, None]
+    return angle.cos(), angle.sin()
+
+
+def _head_norm_rope(t: torch.Tensor, offset: torch.Tensor, rope,
+                    eps: float) -> torch.Tensor:
+    """(b, s, heads, dh) bf16 through RMSNorm over each head (weight
+    1 + offset), then RoPE by `rope` (cos, sin), in f32, rounded to bf16
+    once."""
+    y = t.float()
+    y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + eps)
+    y = y * (1 + offset)
+    cos, sin = rope
+    y1, y2 = y.chunk(2, -1)
+    y = y * cos + torch.cat([-y2, y1], -1) * sin
+    return y.to(t.dtype)
+
+
 def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                attention: str = "einsum",
                ax: Optional[_Axes] = None) -> torch.Tensor:
     b, s, _ = x.shape
     dh = cfg.d_model // cfg.n_heads
     h = layer["wq"].shape[-1] // dh   # this rank's heads
+    kv = layer["wk"].shape[-1] // dh
     if ax is not None:
         x = enter(x, ax.group["tp"])
     q = (x @ _bf16(layer["wq"])).reshape(b, s, h, dh)
-    k = (x @ _bf16(layer["wk"])).reshape(b, s, h, dh)
-    v = (x @ _bf16(layer["wv"])).reshape(b, s, h, dh)
+    k = (x @ _bf16(layer["wk"])).reshape(b, s, kv, dh)
+    v = (x @ _bf16(layer["wv"])).reshape(b, s, kv, dh)
+    if cfg.hybrid:
+        rope = _rotary(s, dh, cfg.rope_theta, x.device)
+        q = _head_norm_rope(q, layer["q_norm"], rope, cfg.norm_eps)
+        k = _head_norm_rope(k, layer["k_norm"], rope, cfg.norm_eps)
+    if kv != h:
+        # grouped-query attention: query head i reads key-value head
+        # i // (h / kv); the copy's backward sums each group
+        k = k[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
+        v = v[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
     if attention == "ring":
         from .ring_attention import (ProcessGroupRing, ThreadRing,
                                      ring_attention, ring_flash_attention)
@@ -243,6 +408,55 @@ def _mlp(x: torch.Tensor, layer: Params,
     # jax.nn.gelu defaults to the tanh approximation
     hidden = F.gelu(x @ _bf16(layer["w1"]), approximate="tanh")
     return _row_sharded(hidden, layer["w2"], ax)
+
+
+def _swiglu(x: torch.Tensor, layer: Params) -> torch.Tensor:
+    """The hybrid block's dense MLP, w2(silu(w1 x) * w3 x), in bf16."""
+    hidden = F.silu(x @ _bf16(layer["w1"])) * (x @ _bf16(layer["w3"]))
+    return hidden @ _bf16(layer["w2"])
+
+
+class _CausalConv(torch.autograd.Function):
+    """Depthwise causal convolution of u (b, s, d) bf16 with taps w (K, d)
+    f32: out[t] = sum_j w[j] * u[t - (K - 1) + j] (u is 0 before the
+    sequence), each sum in f32 from the bf16 inputs, rounded to bf16 once;
+    in the backward du likewise, and each tap's gradient an f32 sum of
+    the bf16 products grad * u. It keeps u alone for the backward, where
+    autograd's composition would keep an f32 copy of u for each tap."""
+
+    @staticmethod
+    def forward(ctx, u, w):
+        ctx.save_for_backward(u, w)
+        s, taps = u.shape[1], w.shape[0]
+        acc = u * w[taps - 1]
+        for j in range(taps - 1):
+            shift = taps - 1 - j
+            acc[:, shift:].addcmul_(u[:, :s - shift], w[j])
+        return acc.to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        u, w = ctx.saved_tensors
+        s, taps = u.shape[1], w.shape[0]
+        du = grad * w[taps - 1]
+        dw = torch.empty_like(w)
+        dw[taps - 1] = (grad * u).sum((0, 1), dtype=torch.float32)
+        for j in range(taps - 1):
+            shift = taps - 1 - j
+            du[:, :s - shift].addcmul_(grad[:, shift:], w[j])
+            dw[j] = (grad[:, shift:] * u[:, :s - shift]).sum(
+                (0, 1), dtype=torch.float32)
+        return du.to(grad.dtype), dw
+
+
+def _short_conv(x: torch.Tensor, layer: Params) -> torch.Tensor:
+    """LFM2's gated short convolution on x (b, s, d) bf16:
+    B, C, h = chunk(x @ conv_in, 3); out = (C * conv(B * h)) @ conv_out,
+    the convolution depthwise and causal over `conv_w`'s taps."""
+    bch = x @ _bf16(layer["conv_in"])
+    gate_b, gate_c, h = bch.chunk(3, -1)
+    mixed = _CausalConv.apply(gate_b * h, layer["conv_w"])
+    return (gate_c * mixed) @ _bf16(layer["conv_out"])
 
 
 def _capacity(tokens: int, n_experts: int, factor: float) -> int:
@@ -371,24 +585,177 @@ def _moe_onehot(x: torch.Tensor, layer: Params,
     return out.view(b, s, d)
 
 
-def _rms_norm(x: torch.Tensor) -> torch.Tensor:
+def _route_topk(xt: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of tokens xt (t, d) bf16 over all n_experts: scores
+    s = sigmoid(f32 router logits of the bf16 operands, as `_route`); the
+    experts_per_token largest s + bias, the bias selecting only (no
+    gradient reaches it); their weights the chosen s, divided by their sum
+    + 1e-6 (LFM2's norm_topk_prob; its routed_scaling_factor is 1).
+    Returns (weights (t, k) f32, experts (t, k))."""
+    scores = torch.sigmoid(xt.float() @ _bf16(wr).float())
+    chosen = (scores.detach() + bias.detach()).topk(
+        cfg.experts_per_token, -1).indices
+    weights = scores.gather(1, chosen)
+    return weights / (weights.sum(-1, keepdim=True) + 1e-6), chosen
+
+
+def _dispatch_plan(chosen: torch.Tensor, first: int, held: int):
+    """Where each (token, expert) pair of `chosen` (t, k) goes among the
+    experts [first, first + held) held here, all on the device: the pairs
+    sorted by held expert (stable, so in token order within one), the
+    others after them. Returns (ends, order, pos, mine): `ends` (held,)
+    int32, each held expert's last sorted row + 1; `order` (t k,) the pair
+    (token x k + j) of each sorted row; `pos` (t, k) each pair's sorted
+    row, `order`'s inverse; `mine` (t, k) whether its expert is held."""
+    t, k = chosen.shape
+    local = chosen.reshape(-1) - first
+    mine = (local >= 0) & (local < held)
+    key, order = torch.where(mine, local, held).sort(stable=True)
+    ends = torch.searchsorted(key, torch.arange(held, device=key.device),
+                              right=True)
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(t * k, device=key.device))
+    return ends.int(), order, pos.view(t, k), mine.view(t, k)
+
+
+class _Dispatch(torch.autograd.Function):
+    """xt (t, d)'s rows in sorted-pair order, (t k, d): row r is the token
+    of pair order[r]. Backward: each token's gradient is the sum over its
+    held pairs of their rows' gradients, gathered by `pos` and summed in
+    f32 (rounded once), with no atomic adds; the rows of pairs not held
+    (past the last offset, undefined) are masked out."""
+
+    @staticmethod
+    def forward(ctx, xt, order, pos, mine):
+        ctx.save_for_backward(pos, mine)
+        return xt.index_select(0, order // pos.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos, mine = ctx.saved_tensors
+        rows = grad.index_select(0, pos.reshape(-1)).view(*pos.shape, -1)
+        return torch.where(mine[..., None], rows, 0).sum(1), None, None, None
+
+
+class _Permuted(torch.autograd.Function):
+    """x's rows in the order of the permutation `index`; its backward is
+    the gather by the inverse permutation (no atomic adds)."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.save_for_backward(inverse)
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, = ctx.saved_tensors
+        return grad.index_select(0, inverse), None, None
+
+
+def _held_experts(xt: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                  w2: torch.Tensor, weights: torch.Tensor,
+                  ends: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
+                  mine: torch.Tensor) -> torch.Tensor:
+    """The held SwiGLU experts' weighted sum for each token of xt (t, d):
+    xt's rows gathered into expert order, the experts as grouped bf16
+    products over `ends` (torch._grouped_mm), then for each token its
+    pairs' outputs times their bf16 weights (each product in bf16), summed
+    in f32 and rounded once. (A batched product for the sum ran its
+    backward at (t, 1, d) x (t, d, k) on the card 8 times slower.)
+    The buffer has a row for every pair, which no routing can overflow.
+    The grouped products stop at the held pairs, but the gathers and the
+    SwiGLU's elementwise passes run over the whole buffer, so over rows
+    past the held pairs, whose values are undefined; `where` on `mine`
+    drops those rows from the result and from the token gradients."""
+    t, d = xt.shape
+    with tracing.span("moe.dispatch"):
+        xs = _Dispatch.apply(xt, order, pos, mine)
+    with tracing.span("moe.experts"):
+        hidden = (F.silu(torch._grouped_mm(xs, _bf16(w1), offs=ends))
+                  * torch._grouped_mm(xs, _bf16(w3), offs=ends))
+        ys = torch._grouped_mm(hidden, _bf16(w2), offs=ends)
+    with tracing.span("moe.combine"):
+        picked = _Permuted.apply(ys, pos.reshape(-1), order)
+        picked = torch.where(mine[..., None], picked.view(*pos.shape, d), 0)
+        return (picked * _bf16(weights)[..., None]).sum(1)
+
+
+def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+                  first: int = 0) -> torch.Tensor:
+    """The hybrid block's dropless top-k MoE on x (b, s, d) bf16, on one
+    device holding experts [first, first + w1e.shape[0]): every
+    token routed over all n_experts (`_route_topk`), the pairs to the
+    experts held computed (`_held_experts`), none dropped; what the
+    experts held elsewhere would add is not part of the result. Nothing
+    is read back to the host. The experts' products are recomputed in the
+    backward (checkpoint), the bf16 casts of the f32 expert weights too:
+    the buffers are sized for any routing, four times the expected rows
+    at top-4 of 32 over 8 held."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    with tracing.span("moe.route"):
+        weights, chosen = _route_topk(xt, layer["wr"], layer["moe_bias"], cfg)
+    with tracing.span("moe.dispatch"):
+        plan = _dispatch_plan(chosen, first, layer["w1e"].shape[0])
+    if tracing.counting():
+        ends = plan[0]
+        tracing.count("moe.routed", chosen.numel())
+        tracing.count("moe.held", ends[-1])
+        tracing.count("moe.dropped", 0)
+        tracing.count("moe.max_rows", torch.diff(ends, prepend=ends[:1] * 0)
+                      .max())
+    out = checkpoint(_held_experts, xt, layer["w1e"], layer["w3e"],
+                     layer["w2e"], weights, *plan, use_reentrant=False,
+                     preserve_rng_state=False)
+    return out.view(b, s, d)
+
+
+def _rms_norm(x: torch.Tensor, eps: float = 1e-6,
+              offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm of x over its last dim, with the weight 1 + offset where an
+    offset (the leaf) is given, rounded once to x's dtype."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     # bf16 x times an f32 rsqrt promotes to f32, as in the JAX version
-    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype)
+    y = x * torch.rsqrt(var + eps)
+    if offset is not None:
+        y = y * (1 + offset)
+    return y.to(x.dtype)
+
+
+def _block_norm(x: torch.Tensor, leaves: Params, key: str,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The block's RMSNorm at cfg's eps: gain-less in the block above,
+    weighted by the offset leaf `key` in the hybrid block."""
+    return _rms_norm(x, cfg.norm_eps, leaves[key] if cfg.hybrid else None)
 
 
 def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-                attention: str, ax: Optional[_Axes] = None) -> torch.Tensor:
-    """One transformer block (attention + MoE/MLP residuals), each half
-    under its span (tracing.py), forward and backward."""
-    with tracing.span("workload.attention"):
-        y = x + _attention(_rms_norm(x), layer, cfg, attention, ax)
-        x = tracing.backward("workload.attention", x, y)
-    with tracing.span("workload.ffn"):
-        if cfg.n_experts:
-            y = x + _moe(_rms_norm(x), layer, cfg, ax)
+                attention: str, ax: Optional[_Axes],
+                kind: Tuple[str, str]) -> torch.Tensor:
+    """One transformer block (token mixer + MoE/MLP residuals), each half
+    under its span (tracing.py), forward and backward. `kind` is the
+    layer's (mixer, MLP) of `cfg.kinds`."""
+    mixer, ffn = kind
+    name = "workload.conv" if mixer == "conv" else "workload.attention"
+    with tracing.span(name):
+        h = _block_norm(x, layer, "op_norm", cfg)
+        if mixer == "conv":
+            y = x + _short_conv(h, layer)
         else:
-            y = x + _mlp(_rms_norm(x), layer, ax)
+            y = x + _attention(h, layer, cfg, attention, ax)
+        x = tracing.backward(name, x, y)
+    with tracing.span("workload.ffn"):
+        h = _block_norm(x, layer, "ffn_norm", cfg)
+        if ffn == "moe" and cfg.hybrid:
+            y = x + _moe_dropless(h, layer, cfg)
+        elif ffn == "moe":
+            y = x + _moe(h, layer, cfg, ax)
+        elif cfg.hybrid:
+            y = x + _swiglu(h, layer)
+        else:
+            y = x + _mlp(h, layer, ax)
         return tracing.backward("workload.ffn", x, y)
 
 
@@ -407,32 +774,46 @@ def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def _layers(x: torch.Tensor, layers: Params, cfg: ModelConfig,
             attention: str, ax: Optional[_Axes]) -> torch.Tensor:
-    """x through each layer of the stacked `layers`, in order; under
+    """x through each layer of the stacked `layers`, in order: layer i
+    takes the next slice of each leaf of its kinds (`cfg.kinds`); under
     `cfg.remat` each layer is recomputed in the backward."""
     # unbind, not w[i]: its backward stacks the layers' grads once, where
     # each w[i]'s would fill and add a zero grad of the whole stack
-    names = list(layers)
-    for weights in zip(*(layers[name].unbind(0) for name in names)):
-        layer = dict(zip(names, weights))
+    slices: Dict[str, List[Params]] = {}
+    for name, stacked in layers.items():
+        group = slices.setdefault(_GROUP_OF[name], [])
+        for i, w in enumerate(stacked.unbind(0)):
+            if i == len(group):
+                group.append({})
+            group[i][name] = w
+    n = len(cfg.layer_types) or next(iter(layers.values())).shape[0]
+    taken = {group: iter(per_layer) for group, per_layer in slices.items()}
+    for kind in cfg.kinds(n):
+        layer: Params = {}
+        for group in (*kind, "every") if cfg.hybrid else kind:
+            layer.update(next(taken[group]))
         if cfg.remat:
-            x = checkpoint(_layer_body, x, layer, cfg, attention, ax,
+            x = checkpoint(_layer_body, x, layer, cfg, attention, ax, kind,
                            use_reentrant=False)
         else:
-            x = _layer_body(x, layer, cfg, attention, ax)
+            x = _layer_body(x, layer, cfg, attention, ax, kind)
     return x
 
 
-def _head(params: Params, x: torch.Tensor,
-          ax: Optional[_Axes]) -> torch.Tensor:
+def _head(params: Params, x: torch.Tensor, ax: Optional[_Axes],
+          cfg: ModelConfig) -> torch.Tensor:
     """f32 logits from the last layer's residual stream."""
-    return _logits(params, x, ax).float()
+    return _logits(params, x, ax, cfg).float()
 
 
-def _logits(params: Params, x: torch.Tensor,
-            ax: Optional[_Axes]) -> torch.Tensor:
+def _logits(params: Params, x: torch.Tensor, ax: Optional[_Axes],
+            cfg: ModelConfig) -> torch.Tensor:
     """bf16 logits from the last layer's residual stream: the final
-    RMSNorm and the unembedding."""
-    x = _rms_norm(x)
+    RMSNorm (`final_norm` in the hybrid block) and the unembedding, which
+    the hybrid block ties to the embedding (its transpose)."""
+    x = _block_norm(x, params, "final_norm", cfg)
+    if cfg.hybrid:
+        return x @ _bf16(params["embed"]).t()
     if ax is not None:
         # unembed is row-sharded: each rank multiplies its d-slice
         width = params["unembed"].shape[0]
@@ -451,11 +832,11 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = _stage(params, tokens, cfg, attention, ax)
     if ax is None or ax.size["pp"] == 1:
         with tracing.span("workload.head"):
-            return _head(params, x, ax)
+            return _head(params, x, ax, cfg)
     # the logits are replicated over pp, as the JAX version's out_shardings
     # replicate them: broadcast from the last stage
     if ax.last_stage():
-        logits = _head(params, x, ax)
+        logits = _head(params, x, ax, cfg)
     else:
         _send_on(x, ax)
         logits = torch.empty(*tokens.shape, cfg.vocab, device=x.device)
@@ -469,7 +850,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     rank's shards and `tokens` its (dp, sp) block; so are the logits,
     which every pp stage returns."""
     with tracing.span("workload.forward", root=True):
-        return _forward(params, tokens, cfg, attention, _axes(mesh))
+        return _forward(params, tokens, cfg, attention, _axes(mesh, cfg))
 
 
 def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
@@ -488,17 +869,18 @@ def _loss(params: Params, rows: torch.Tensor, cfg: ModelConfig,
     if ax is not None and not ax.last_stage():
         return _send_on(x, ax)
     targets = rows[:, start + 1:start + width + 1]
-    return _nll_sum(params, x, targets, ax) / (rows.shape[0] * dp * (seq - 1))
+    return (_nll_sum(params, x, targets, ax, cfg)
+            / (rows.shape[0] * dp * (seq - 1)))
 
 
 def _nll_sum(params: Params, x: torch.Tensor, targets: torch.Tensor,
-             ax: Optional[_Axes]) -> torch.Tensor:
+             ax: Optional[_Axes], cfg: ModelConfig) -> torch.Tensor:
     """The summed next-token NLL of the last layer's residual stream x
     against `targets`, which may be one position shorter than x (the last
     global position predicts nothing): `xent.nll_sum` of the bf16 logits,
     the kernel pair on a CUDA tensor."""
     with tracing.span("workload.head"):
-        nll = xent.nll_sum(_logits(params, x, ax), targets)
+        nll = xent.nll_sum(_logits(params, x, ax, cfg), targets)
         return tracing.backward("workload.head", x, nll)
 
 
@@ -507,7 +889,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Mean next-token cross-entropy. On a mesh, `tokens` are the rank's
     dp rows over the whole sequence, and the result is this rank's part of
     the mean (the parts sum to it over dp, sp and pp)."""
-    return _loss(params, tokens, cfg, attention, _axes(mesh))
+    return _loss(params, tokens, cfg, attention, _axes(mesh, cfg))
 
 
 def _named_leaves(tree: Params, prefix: str = ""
@@ -559,7 +941,7 @@ def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     params are not marked as requiring grad. On a mesh the loss is summed
     over dp, sp and pp and each leaf's gradient over `_grad_axes`: every
     rank gets the global loss and the gradient of its shards."""
-    ax = _axes(mesh)
+    ax = _axes(mesh, cfg)
     named = _named_leaves(params)
     leaves = [p.detach().requires_grad_() for _, p in named]
     with torch.enable_grad():
@@ -592,12 +974,35 @@ def sgd_step(params: Params, momentum: Params, tokens: torch.Tensor,
 
     m <- momentum * m + g, p <- p - lr * m. params and momentum are updated
     in place (the JAX version donates them) and returned with the loss,
-    which is the loss before the update."""
-    with tracing.span("workload.sgd_step", root=True):
+    which is the loss before the update.
+
+    The garbage collector is paused while the step is enqueued
+    (`_collector_paused`)."""
+    with _collector_paused(), tracing.span("workload.sgd_step", root=True):
         loss, grads = value_and_grad(params, tokens, cfg, attention, mesh)
         with tracing.span("workload.sgd_update"):
             _sgd_update(params, momentum, grads, cfg.momentum, cfg.lr)
     return params, momentum, loss
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's automatic garbage collection off inside, as the caller had
+    it after. A step's Python objects (tensors of the graph, the layers'
+    leaf dicts) live until the step ends; each collection inside it moves
+    the live ones to an older generation, and after a few dozen steps the
+    full collection this brings on holds the host for 0.1-0.2 s, longer
+    than it runs ahead of the card, which then waits (LFM2 at 2 x 8192 on
+    an H100: one step in ~33 took 0.13-0.21 s longer). Paused,
+    they die by reference count at the step's end; cyclic garbage waits
+    for the next collection outside the step."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _sgd_update(params: Params, momentum: Params, grads: Params,
@@ -613,7 +1018,9 @@ def param_specs(cfg: ModelConfig) -> Params:
     """Per leaf, the mesh axis each dimension is sharded over (None =
     replicated), as the JAX version's PartitionSpecs: "pp" on the stacked
     layer dim, "tp" over heads and ffn, "ep" over experts; replicated over
-    dp and sp. Axes the mesh lacks drop out (`shard_params`)."""
+    dp and sp. Axes the mesh lacks drop out (`shard_params`). The hybrid
+    block has none (ValueError)."""
+    _one_device(cfg)
     layers = {
         "wq": ("pp", None, "tp"), "wk": ("pp", None, "tp"),
         "wv": ("pp", None, "tp"), "wo": ("pp", "tp", None),
@@ -687,6 +1094,8 @@ def _resolve(cfg: Optional[ModelConfig], mesh, attention: Optional[str],
     CUDA from `FLASH_MIN_SEQ` on, and einsum below it and on the CPU."""
     cfg = cfg or ModelConfig()
     dev = resolve_device(device)
+    if mesh is not None:
+        _one_device(cfg)
     sp = 1 if mesh is None else mesh_shape(mesh)["sp"]
     if attention is None:
         if sp > 1:
