@@ -18,12 +18,16 @@ failure:
    training head's NLL kernel pair (xent_fwd, xent_bwd) at switch-base-8's
    and pythia-1.4b's head shapes and a ragged vocab, timed at Switch's
    beside its bound by bytes, its plain version and `F.cross_entropy` on
-   the f32 logits;
+   the f32 logits; and LFM2's gated short convolution (conv_fwd,
+   conv_bwd) at LFM2's shape (2 x 8192, d 2048, 3 taps) and at ragged
+   ones, timed at LFM2's beside its bound by bytes, its plain version
+   and `F.conv1d(groups=d)` with the two gates;
 4. drive the serving path at the `mfu` preset through
    `probe.validate_slice(mode="infer")` and the training path through
    `probe.validate_slice(mode="train")`, each with the launch counts set
    to 0 just before it, and assert each is ok and went through its
-   kernels (the head's pair once a training step, never in serving); then
+   kernels (the head's pair once a training step, never in serving; the
+   convolution's never: the block has no conv layer); then
    compare one forward's logits, and one training step's loss and
    gradients, with the same computation through the kernels' plain
    versions on the same weights, at mfu and at a small configuration;
@@ -44,6 +48,14 @@ failure:
    and one MoE training step through the kernels against the same step
    through their plain versions, on the same weights, with the route
    agreement of the two;
+7. LFM2's hybrid block at LFM2's widths and the cell's 2 x 8192 tokens,
+   cut to 4 layers (3 conv, 1 attention): `workload.sgd_step` and
+   `workload.forward`, each with the launch counts set to 0 just before
+   it (conv_fwd and conv_bwd once a conv layer per step, with b s
+   `conv.fused_rows` each; K1-K3 once an attention layer; the head's pair
+   once; a forward conv_fwd and K1 alone); then one step's loss and
+   gradients against the same step with `short_conv.gated_conv_plain` in
+   the kernels' place;
 8. GPipe at the mfu preset: pp 2 as two threads of this process on the
    one card (`pipeline.ThreadLink`, each stage on its own stream; NCCL
    refuses two ranks on one card), 4 microbatches: one step's loss and
@@ -66,7 +78,8 @@ failure:
    step_time_s beside phase 4's; and a coordinator nobody serves (`--init-timeout 5`): a JSON report
    with `ok` false and `error` "distributed init: ...", exit 1, in time;
 11. print one JSON line of kernels (launches by path, the benches' and the
-   multi-process runs' too), then, last, the device line.
+   multi-process runs' too; the short convolution's from phase 7), then,
+   last, the device line.
 
 Without CUDA it exits non-zero before printing any result.
 """
@@ -75,6 +88,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import socket
 import subprocess
@@ -121,6 +135,17 @@ XENT_TARGET_ATOL = 1e-5
 # (B, S, T, V): switch-base-8's head (timed), pythia-1.4b's, a ragged vocab
 XENT_SHAPES = [(128, 512, 511, 32128), (8, 2048, 2047, 50304),
                (2, 96, 95, 1001)]
+# LFM2's gated short convolution vs its plain version: the same bf16
+# roundings of exact products, only the f32 sums in another order, so y
+# within one bf16 ulp of the plain y per element (`ulp_ratio` <= 1), dbch
+# by the element bar above (`tol_ratio` <= 1). Each tap's gradient, an
+# f32 sum of b s bf16 products, against the exact (f64) sum of those
+# products: within `short_conv.dw_sum_depth(b, s)` 2^-24 of the sum of
+# their absolute values (`dw_ratio` <= 1), the most additions any term
+# passes through in the kernels' order (104 at LFM2's shape, where one
+# tile's partial left out, some sqrt(64) terms' worth, is about 100 times
+# the bar). (b, s, d, K): LFM2's (timed), ragged ones.
+CONV_SHAPES = [(2, 8192, 2048, 3), (3, 200, 136, 2), (2, 197, 64, 4)]
 # One training step through the kernels vs the same step through the plain
 # versions: only the attention's summation order and bf16 roundings of its
 # outputs differ, fed through 8 bf16 layers; the port's step against the
@@ -154,6 +179,23 @@ SMALL = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
 # disagreement must be a tie within its layer's largest logit difference.
 MOE_EXPERTS = 4
 MOE_ROUTE_AGREE_MIN = 0.99
+# Phase 7: LFM2's hybrid block at LFM2's widths (d 2048, 32 query heads
+# over 8 key-value heads, 3 taps, SwiGLU 7168, top-4 of 32 experts of 1792
+# with 8 held) and the cell's 2 x 8192 tokens a step, cut to 4 layers (3
+# conv, 1 attention; 1 dense, 3 MoE). Its step through the conv kernels
+# against the same step with the plain convolution in their place: the
+# kernels give y and dbch bit for bit the plain version's, so where two
+# kernel steps agree bit for bit the plain step must give the same loss
+# and every gradient but the taps' bit for bit, and the taps' within the
+# dense step's bar (STEP_GRAD_REL_TOL); where they do not, the dense
+# step's bars hold.
+HYBRID = dict(vocab=65536, d_model=2048, n_heads=32, n_kv_heads=8,
+              d_ff=7168, n_layers=4,
+              layer_types=("conv", "conv", "full_attention", "conv"),
+              n_dense_layers=1, n_experts=32, experts_held=8,
+              expert_d_ff=1792, experts_per_token=4, rope_theta=1e6,
+              norm_eps=1e-5, seq_len=8192, batch=2)
+HYBRID_STEPS = 3
 # GPipe at mfu on one card: 2 stages as threads, 4 microbatches of 2 rows.
 # The same model and bars as the dense step (STEP_LOSS_TOL,
 # STEP_GRAD_REL_TOL): only the microbatches' bf16 roundings and the order
@@ -592,9 +634,159 @@ def check_xent(torch, dev):
     }
 
 
+def conv_bounds(b: int, s: int, d: int):
+    """Least time (ms) for conv_fwd and for conv_bwd on the card, both bound
+    by bytes: the forward reads bch (b, s, 3d) once and writes y (b, s, d)
+    once; the backward reads bch and dy once and writes dbch once (the taps
+    and their gradient, K d floats, left out)."""
+    fwd = b * s * (3 * d + d) * 2
+    bwd = b * s * (3 * d + d + 3 * d) * 2
+    return {"conv_fwd": (*_bound(0, fwd, "bfloat16"), fwd),
+            "conv_bwd": (*_bound(0, bwd, "bfloat16"), bwd)}
+
+
+def _conv_library(torch, bch, w):
+    """The gated convolution through `F.conv1d(groups=d)` (bf16 taps): the
+    yardstick the port never calls."""
+    import torch.nn.functional as F
+    (_, s, d3), taps = bch.shape, w.shape[0]
+    gate_b, gate_c, h = bch.chunk(3, -1)
+    mixed = F.conv1d((gate_b * h).transpose(1, 2),
+                     w.t()[:, None].to(torch.bfloat16), padding=taps - 1,
+                     groups=d3 // 3)[..., :s].transpose(1, 2)
+    return gate_c * mixed
+
+
+def _dw_exact(torch, bch, w, dy):
+    """Each tap's gradient as the exact (f64) sum of the bf16 products
+    bf16(dy C)[t + K-1-j] bf16(B h)[t] that the kernels and the plain
+    version both sum in f32, and the sum of their absolute values."""
+    s, taps = bch.shape[1], w.shape[0]
+    gate_b, gate_c, h = bch.chunk(3, -1)
+    u, dmixed = gate_b * h, dy * gate_c
+    exact, mag = [], []
+    for j in range(taps):
+        shift = taps - 1 - j
+        terms = (dmixed[:, shift:] * u[:, :s - shift]).double()
+        exact.append(terms.sum((0, 1)))
+        mag.append(terms.abs().sum((0, 1)))
+        del terms
+    return torch.stack(exact), torch.stack(mag)
+
+
+def check_conv(torch, dev):
+    """Phase 3 for the short convolution's pair: every shape against the
+    plain version; times at LFM2's shape. Returns the pair's JSON entry."""
+    from tpu_device_plugin_torch.validator import short_conv
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def inputs(b, s, d, taps):
+        bch = torch.randn((b, s, 3 * d), generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        w = torch.randn((taps, d), generator=gen, device=dev) * taps ** -0.5
+        dy = torch.randn((b, s, d), generator=gen, device=dev
+                         ).to(torch.bfloat16)
+        return bch, w, dy
+
+    def plain(bch, w, dy):
+        leaf = bch.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        y = short_conv.gated_conv_plain(leaf, wl)
+        y.backward(dy)
+        return y.detach(), leaf.grad, wl.grad
+
+    checks = []
+    for b, s, d, taps in CONV_SHAPES:
+        bch, w, dy = inputs(b, s, d, taps)
+        y = short_conv.conv_fwd(bch, w)
+        dbch, dw = short_conv.conv_bwd(bch, w, dy)
+        dbch2, dw2 = short_conv.conv_bwd(bch, w, dy)
+        torch.cuda.synchronize()
+        ref_y, ref_dbch, ref_dw = plain(bch, w, dy)
+        mag = ref_y.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        ulp_ratio = ((y.float() - ref_y.float()).abs() / ulp).max().item()
+        del mag, ulp
+        exact, mag = _dw_exact(torch, bch, w, dy)
+        bar = (short_conv.dw_sum_depth(b, s) * 2 ** -24 * mag).clamp(
+            min=1e-300)
+        dw_ratio = ((dw.double() - exact).abs() / bar).max().item()
+        plain_dw_ratio = ((ref_dw.double() - exact).abs() / bar).max().item()
+        del exact, mag, bar
+        err = _elem_err(dbch, ref_dbch, "bfloat16")
+        repeat_equal = bool(torch.equal(dbch, dbch2) and torch.equal(dw, dw2))
+        ok = (ulp_ratio <= 1.0 and err["tol_ratio"] <= 1.0 and dw_ratio <= 1.0
+              and repeat_equal and bool(torch.isfinite(dbch).all()))
+        line = dict(kernel="short_conv", b=b, s=s, d=d, taps=taps,
+                    ulp_ratio=ulp_ratio,
+                    y_equal_share=(y == ref_y).float().mean().item(),
+                    dbch_equal_share=(dbch == ref_dbch).float().mean().item(),
+                    **err, dw_ratio=dw_ratio, plain_dw_ratio=plain_dw_ratio,
+                    repeat_equal=repeat_equal,
+                    ok=ok)
+        print(json.dumps(line), flush=True)
+        checks.append(line)
+        if not ok:
+            raise AssertionError(f"short_conv disagrees with its plain "
+                                 f"version: {line}")
+        del bch, w, dy, y, dbch, dw, dbch2, dw2, ref_y, ref_dbch, ref_dw
+        torch.cuda.empty_cache()
+
+    b, s, d, taps = CONV_SHAPES[0]
+    bch, w, dy = inputs(b, s, d, taps)
+    ms = {"conv_fwd": _cuda_ms(torch, lambda: short_conv.conv_fwd(bch, w),
+                               50),
+          "conv_bwd": _cuda_ms(torch, lambda: short_conv.conv_bwd(bch, w, dy),
+                               50)}
+    leaf = bch.detach().requires_grad_()
+    wl = w.detach().requires_grad_()
+    pair_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        short_conv.gated_conv(leaf, wl), (leaf, wl), dy), 20)
+    plain_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        short_conv.gated_conv_plain(leaf, wl), (leaf, wl), dy), 10)
+    library_ms = _cuda_ms(torch, lambda: torch.autograd.grad(
+        _conv_library(torch, leaf, wl), (leaf, wl), dy), 10)
+    del bch, w, dy, leaf, wl
+    torch.cuda.empty_cache()
+    bounds = conv_bounds(b, s, d)
+    bound_ms = sum(bounds[k][0] for k in bounds)
+    nbytes = sum(bounds[k][2] for k in bounds)
+    kernel_ms = ms["conv_fwd"] + ms["conv_bwd"]
+    # the kernels' own time: the pair through autograd (`pair_ms`) adds the
+    # host's time to build and run the graph, which exceeds the card's here
+    line = dict(kernel="short_conv", b=b, s=s, d=d, taps=taps, ms=kernel_ms,
+                fwd_ms=ms["conv_fwd"], bwd_ms=ms["conv_bwd"],
+                fwd_bound_ms=bounds["conv_fwd"][0],
+                bwd_bound_ms=bounds["conv_bwd"][0],
+                fwd_bound_share=bounds["conv_fwd"][0] / ms["conv_fwd"],
+                bwd_bound_share=bounds["conv_bwd"][0] / ms["conv_bwd"],
+                bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / kernel_ms,
+                tb_per_s=nbytes / kernel_ms * 1e-9, pair_ms=pair_ms,
+                plain_ms=plain_ms, library_ms=library_ms)
+    print(json.dumps(line), flush=True)
+    return {
+        "name": "short_conv",
+        "route": "cuda",
+        "source": "tpu_device_plugin_torch/validator/csrc/short_conv.cu",
+        "replaces": "none (LFM2's gated short convolution; the JAX package "
+                    "has none)",
+        **{key: checks[0][key] for key in ("ulp_ratio", "max_abs_err",
+                                           "tol_ratio", "dw_ratio")},
+        **{key: line[key] for key in ("ms", "fwd_ms", "bwd_ms", "bound_ms",
+                                      "fwd_bound_share", "bwd_bound_share",
+                                      "bound_by", "bound_share", "pair_ms",
+                                      "plain_ms", "library_ms")},
+        "library_is": "F.conv1d(groups=d) on bf16 taps with the two gates, "
+                      "forward and backward",
+        "ok": all(c["ok"] for c in checks),
+        "checks": len(checks),
+    }
+
+
 def _reset(fa):
-    from tpu_device_plugin_torch.validator import xent
-    for counts in (fa.launches, xent.launches):
+    from tpu_device_plugin_torch.validator import short_conv, xent
+    for counts in (fa.launches, xent.launches, short_conv.launches):
         for name in counts:
             counts[name] = 0
 
@@ -762,6 +954,101 @@ def check_moe(torch, fa, cfg, dev):
             or line["route_flips_not_ties"]):
         raise AssertionError("the MoE training step through the kernels "
                              "disagrees with the plain versions")
+    return launches
+
+
+def check_hybrid(torch, fa, dev) -> dict:
+    """Phase 7: LFM2's hybrid block (HYBRID) through `workload.sgd_step`
+    and `workload.forward`, each with the launch counts set to 0 just
+    before it: a step launches conv_fwd and conv_bwd once a conv layer, K1,
+    K2 and K3 once an attention layer and the head's pair once, and counts
+    b s `conv.fused_rows` a conv layer; a forward launches conv_fwd and K1
+    alone. Then one step's loss and gradients against the same step with
+    `gated_conv_plain` in `gated_conv`'s place. Returns {path: conv
+    launches}."""
+    from tpu_device_plugin_torch.validator import (short_conv, tracing,
+                                                   workload, xent)
+    cfg = workload.ModelConfig(**HYBRID)
+    conv = cfg.layer_types.count("conv")
+    attn = cfg.n_layers - conv
+    step, params, momentum, tokens = workload.build_workload(
+        cfg, seed=0, attention="flash", device=dev)
+    _reset(fa)
+    with tracing.recording() as rec:
+        losses = [step(params, momentum, tokens)[2].item()
+                  for _ in range(HYBRID_STEPS)]
+    launches = {"hybrid_train": dict(short_conv.launches)}
+    line = dict(check="LFM2 hybrid block through sgd_step, counted",
+                steps=HYBRID_STEPS, losses=losses,
+                conv=dict(short_conv.launches), flash=dict(fa.launches),
+                head=dict(xent.launches),
+                conv_fused_rows=rec.counts.get("conv.fused_rows"))
+    print(json.dumps(line), flush=True)
+    n = HYBRID_STEPS
+    if (short_conv.launches != dict.fromkeys(short_conv.launches, conv * n)
+            or fa.launches != dict.fromkeys(fa.launches, attn * n)
+            or xent.launches != dict.fromkeys(xent.launches, n)
+            or line["conv_fused_rows"] != conv * n * cfg.batch * cfg.seq_len
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"the hybrid block's steps went another way: "
+                             f"{line}")
+
+    _reset(fa)
+    with torch.no_grad():
+        logits = workload.forward(params, tokens, cfg, "flash")
+        finite = bool(torch.isfinite(logits).all())
+    del logits
+    launches["hybrid_infer"] = dict(short_conv.launches)
+    if (not finite or short_conv.launches != {"conv_fwd": conv,
+                                              "conv_bwd": 0}
+            or fa.launches != {"flash_fwd": attn, "flash_bwd_dkv": 0,
+                               "flash_bwd_dq": 0}):
+        raise AssertionError(f"the hybrid forward launched "
+                             f"{short_conv.launches} and {fa.launches}; "
+                             f"finite {finite}")
+    torch.cuda.empty_cache()
+
+    _reset(fa)
+    loss, grads = workload.value_and_grad(params, tokens, cfg, "flash")
+    again_loss, again = workload.value_and_grad(params, tokens, cfg, "flash")
+    expected = {"conv_fwd": 2 * conv, "conv_bwd": 2 * conv}
+    if short_conv.launches != expected:
+        raise AssertionError(f"kernel steps launched {short_conv.launches}, "
+                             f"expected {expected}")
+    with mock.patch.object(short_conv, "gated_conv",
+                           short_conv.gated_conv_plain):
+        ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
+    if short_conv.launches != expected:
+        raise AssertionError(f"plain step launched a conv kernel: "
+                             f"{short_conv.launches}")
+    named = workload._named_leaves(grads)
+    repeat_equal = bool(torch.equal(loss, again_loss)) and all(
+        torch.equal(g, a) for (_, g), a in zip(named, workload._leaves(again)))
+    rel, unequal = {}, []
+    for (key, g), r in zip(named, workload._leaves(ref)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient for {key}")
+        # moe_bias gets no gradient: 0 on both sides
+        rel[key] = ((g - r).abs().max()
+                    / r.abs().max().clamp(min=1e-30)).item()
+        if not torch.equal(g, r):
+            unequal.append(key)
+    del grads, again, ref, params, momentum
+    torch.cuda.empty_cache()
+    line = dict(check="LFM2 hybrid training step: conv kernels vs plain "
+                "convolution", loss=loss.item(), plain_loss=ref_loss.item(),
+                loss_equal=bool(torch.equal(loss, ref_loss)),
+                loss_diff=abs(loss.item() - ref_loss.item()),
+                kernel_repeat_equal=repeat_equal, unequal_leaves=unequal,
+                max_grad_rel=max(rel.values()), grad_rel=rel,
+                grad_rel_tol=STEP_GRAD_REL_TOL, loss_tol=STEP_LOSS_TOL)
+    print(json.dumps(line), flush=True)
+    taps_only = all(key.endswith("conv_w") for key in unequal)
+    if (line["max_grad_rel"] > STEP_GRAD_REL_TOL
+            or line["loss_diff"] > STEP_LOSS_TOL
+            or (repeat_equal and not (line["loss_equal"] and taps_only))):
+        raise AssertionError("the hybrid step through the conv kernels "
+                             "disagrees with the plain convolution")
     return launches
 
 
@@ -1261,7 +1548,7 @@ def main() -> int:
         return 1
     from tpu_device_plugin_torch.validator import _kernels
     from tpu_device_plugin_torch.validator import flash_attention as fa
-    from tpu_device_plugin_torch.validator import xent
+    from tpu_device_plugin_torch.validator import short_conv, xent
     from tpu_device_plugin_torch.validator.probe import PRESETS, validate_slice
     from tpu_device_plugin_torch.validator.workload import ModelConfig
 
@@ -1286,6 +1573,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     xent_entry = check_xent(torch, dev)
     torch.cuda.empty_cache()
+    conv_entry = check_conv(torch, dev)
+    torch.cuda.empty_cache()
 
     # 4. the serving and the training path at the mfu preset, counted
     _memory(torch, "4")
@@ -1295,6 +1584,7 @@ def main() -> int:
                             device="cuda")
     infer_launches = dict(fa.launches)
     infer_xent = dict(xent.launches)
+    infer_conv = dict(short_conv.launches)
     print(report.to_json(), flush=True)
     if not report.ok:
         raise AssertionError(f"validate_slice(mfu, infer) not ok: {report.error}")
@@ -1314,6 +1604,7 @@ def main() -> int:
                                   mode="train", device="cuda")
     train_launches = dict(fa.launches)
     train_xent = dict(xent.launches)
+    train_conv = dict(short_conv.launches)
     print(train_report.to_json(), flush=True)
     if not train_report.ok or not train_report.loss_end < train_report.loss_start:
         raise AssertionError(f"validate_slice(mfu, train) not ok: "
@@ -1327,6 +1618,10 @@ def main() -> int:
         raise AssertionError(
             f"the head's kernels launched {train_xent} in "
             f"{train_report.steps} steps; expected one of each per step")
+    if infer_conv != train_conv or train_conv != dict.fromkeys(
+            short_conv.launches, 0):
+        raise AssertionError(f"a block without conv layers launched the "
+                             f"conv kernels: {infer_conv}, {train_conv}")
     print(json.dumps({"launches": {"infer": infer_launches,
                                    "train": train_launches,
                                    "head_infer": infer_xent,
@@ -1387,6 +1682,13 @@ def main() -> int:
             entry["launches_by_path"][path] = counts[kernel]
         entry["ring_modes"] = modes[kernel]
 
+    # 7. LFM2's hybrid block, through the conv kernels
+    _memory(torch, "7")
+    conv_entry["launches_by_path"] = check_hybrid(torch, fa, dev)
+    conv_entry["launches"] = sum(sum(counts.values()) for counts in
+                                 conv_entry["launches_by_path"].values())
+    torch.cuda.empty_cache()
+
     # 8. GPipe at the mfu width, two stage threads on the card
     _memory(torch, "8")
     check_gpipe(torch, fa, cfg, dev)
@@ -1408,7 +1710,8 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
 
     # 11. results
-    print(json.dumps({"kernels": entries + [xent_entry]}), flush=True)
+    print(json.dumps({"kernels": entries + [xent_entry, conv_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,6 +29,14 @@ kernel is held against its plain PyTorch version on the same inputs:
   ulp) + XENT_GRAD_ATOL (p flushed to 0 under 2^-126), and at each target
   XENT_TARGET_ATOL |g| more (p - 1 loses p's relative precision); rows
   past T exactly 0.
+- conv_fwd, conv_bwd (LFM2's gated short convolution): the same bf16
+  roundings as the plain version from exact products, only the f32 sums
+  in another order (fused multiply-adds), so y is within one bf16 ulp of
+  the plain version's per element and dbch within `grad_close`; each tap's
+  gradient, an f32 sum of b s bf16 products, within
+  `short_conv.dw_sum_depth(b, s)` 2^-24 of the sum of their absolute
+  values from their exact (f64) sum: the most additions any term passes
+  through in the kernels' order.
 """
 
 from unittest import mock
@@ -38,7 +46,8 @@ import pytest
 import torch
 
 from tpu_device_plugin_torch.validator import flash_attention as fa
-from tpu_device_plugin_torch.validator import tracing, workload, xent
+from tpu_device_plugin_torch.validator import (short_conv, tracing,
+                                               workload, xent)
 
 LSE_TOL = 1e-3
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2 ** -7}
@@ -54,6 +63,9 @@ XENT_TARGET_ATOL = 1e-5
 # row widths), a ragged vocab, T = S
 XENT_SHAPES = [(2, 64, 63, 32128), (2, 32, 31, 50304), (3, 40, 39, 1001),
                (2, 16, 16, 1001)]
+# (b, s, d): s ragged against the kernels' tiles of 64 tokens, b > 1; one
+# token; LFM2's width over three tiles and a part
+CONV_SHAPES = [(2, 200, 136), (3, 37, 64), (1, 1, 8), (2, 197, 2048)]
 
 
 @pytest.fixture
@@ -539,11 +551,15 @@ def test_hybrid_block_on_card_matches_the_reference(cuda_device):
     import torch_lfm2_tiny as tiny
     params, tokens = tiny.inputs(2 ** 31 + 21, cuda_device)
     before = dict(fa.launches)
+    conv_before = dict(short_conv.launches)
     loss, grad, new, routes = tiny.port_step(workload, params, tokens,
                                              "flash")
     attention_layers = tiny.MODEL["layer_types"].count("attention")
     for name in fa.launches:
         assert fa.launches[name] == before[name] + attention_layers, name
+    conv_layers = tiny.MODEL["layer_types"].count("conv")
+    assert short_conv.launches == {k: n + conv_layers
+                                   for k, n in conv_before.items()}
     ref = tiny.reference_step(params, tokens, routes)
     gaps = tiny.step_gaps((loss, grad, new), ref[:3], params)
     assert gaps["loss"] <= tiny.LOSS_TOL, gaps
@@ -553,3 +569,99 @@ def test_hybrid_block_on_card_matches_the_reference(cuda_device):
     control = tiny.reference_step(params, tokens, routes, "fp8")
     assert tiny.step_gaps(control[:3], ref[:3], params)["grad"] \
         > tiny.GRAD_TOL
+
+
+def _conv_inputs(b, s, d, taps, device, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+    bch = torch.randn((b, s, 3 * d), generator=gen, device=device
+                      ).to(torch.bfloat16)
+    w = torch.randn((taps, d), generator=gen, device=device) * taps ** -0.5
+    dy = torch.randn((b, s, d), generator=gen, device=device
+                     ).to(torch.bfloat16)
+    return bch, w, dy
+
+
+def _conv_plain(bch, w, dy):
+    """The plain version's y, dbch and dw for dy."""
+    leaf, taps = bch.detach().requires_grad_(), w.detach().requires_grad_()
+    y = short_conv.gated_conv_plain(leaf, taps)
+    y.backward(dy)
+    return y.detach(), leaf.grad, taps.grad
+
+
+def _dw_exact(bch, w, dy):
+    """Each tap's gradient as the exact (f64) sum of the bf16 products
+    bf16(dy C)[t + K-1-j] bf16(B h)[t], and the sum of their absolute
+    values."""
+    s, taps = bch.shape[1], w.shape[0]
+    gate_b, gate_c, h = bch.chunk(3, -1)
+    u, dmixed = gate_b * h, dy * gate_c
+    terms = [(dmixed[:, taps - 1 - j:] * u[:, :s - (taps - 1 - j)]).double()
+             for j in range(taps)]
+    return (torch.stack([t.sum((0, 1)) for t in terms]),
+            torch.stack([t.abs().sum((0, 1)) for t in terms]))
+
+
+def within_one_ulp(out, ref) -> bool:
+    """Every bf16 element within one bf16 ulp of |ref| (of the least
+    normal bf16 value where ref is smaller)."""
+    ref = ref.float()
+    mag = ref.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((out.float() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", [2, 3, 4])
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=[f"b{b}s{s}d{d}" for b, s, d in CONV_SHAPES])
+def test_conv_kernels_match_plain(cuda_device, shape, taps):
+    bch, w, dy = _conv_inputs(*shape, taps, cuda_device)
+    y = short_conv.conv_fwd(bch, w)
+    dbch, dw = short_conv.conv_bwd(bch, w, dy)
+    again = short_conv.conv_bwd(bch, w, dy)
+    torch.cuda.synchronize()
+    ref_y, ref_dbch, _ = _conv_plain(bch, w, dy)
+    assert y.shape == ref_y.shape and y.dtype == torch.bfloat16
+    assert dbch.shape == bch.shape and dbch.dtype == torch.bfloat16
+    assert dw.shape == w.shape and dw.dtype == torch.float32
+    assert within_one_ulp(y, ref_y)
+    assert grad_close(dbch, ref_dbch, "bfloat16")
+    exact, mag = _dw_exact(bch, w, dy)
+    bar = short_conv.dw_sum_depth(*shape[:2]) * 2 ** -24 * mag
+    assert ((dw.double() - exact).abs() <= bar).all()
+    assert torch.equal(again[0], dbch) and torch.equal(again[1], dw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", [2, 3, 4])
+def test_conv_kernels_keep_the_sequences_apart(cuda_device, taps):
+    """Each sequence's outputs and gradients, bit for bit, as alone."""
+    bch, w, dy = _conv_inputs(3, 70, 64, taps, cuda_device, seed=1)
+    y = short_conv.conv_fwd(bch, w)
+    dbch, _ = short_conv.conv_bwd(bch, w, dy)
+    for i in range(3):
+        one = bch[i:i + 1].contiguous()
+        assert torch.equal(short_conv.conv_fwd(one, w), y[i:i + 1])
+        alone, _ = short_conv.conv_bwd(one, w, dy[i:i + 1].contiguous())
+        assert torch.equal(alone, dbch[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_conv_counts_its_launches_and_rows_and_raises_on_bad_input(
+        cuda_device):
+    bch, w, dy = _conv_inputs(2, 37, 64, 3, cuda_device)
+    leaf = bch.detach().requires_grad_()
+    taps = w.detach().requires_grad_()
+    before = dict(short_conv.launches)
+    with tracing.recording() as rec:
+        short_conv.gated_conv(leaf, taps).backward(dy)
+    torch.cuda.synchronize()
+    assert short_conv.launches == {k: n + 1 for k, n in before.items()}
+    assert rec.counts["conv.fused_rows"] == 2 * 37
+    assert leaf.grad.dtype == torch.bfloat16 and taps.grad.dtype == torch.float32
+    # a CUDA tensor reaches the kernels' checks (tests/test_torch_short_conv.py
+    # holds each refusal), and nothing falls back
+    with pytest.raises(ValueError, match="contiguous"):
+        short_conv.gated_conv(torch.cat([bch, bch], -1)[..., :3 * 64], w)
+    assert short_conv.launches == {k: n + 1 for k, n in before.items()}

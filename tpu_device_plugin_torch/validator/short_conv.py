@@ -1,0 +1,216 @@
+"""LFM2's gated short convolution on a hand-written CUDA kernel pair
+(`csrc/short_conv.cu`).
+
+For the conv projection's output bch (b, s, 3d) bf16, cut into gates B, C
+and values h of d channels each, and taps w (K, d) f32:
+
+    u[t]     = bf16(B[t] h[t])                      (u is 0 before t = 0)
+    mixed[t] = bf16(w[K-1] u[t] + sum_j<K-1 w[j] u[t-(K-1)+j])
+    y[t]     = bf16(C[t] mixed[t])
+
+each sum in f32 in that order, per channel and per sequence. The
+backward, for dy (b, s, d) bf16, rounds as autograd does through the
+composition: dmixed = bf16(dy C), dC = bf16(dy mixed); du[t] the f32 sum
+of dmixed[t] w[K-1] and dmixed[t+(K-1)-j] w[j], rounded once; dB =
+bf16(du h), dh = bf16(du B); each tap's gradient dw[j] the f32 sum of the
+bf16 products dmixed[t+(K-1)-j] u[t].
+
+- `gated_conv_plain` is the function as PyTorch composes it (the chunk,
+  the gates, `_CausalConv`); autograd differentiates it. A CPU tensor
+  gets it.
+- On a CUDA tensor `gated_conv` goes through `_GatedConv`: `conv_fwd`
+  reads bch once and writes y once; `conv_bwd` reads bch and dy once,
+  writes dbch once in bch's layout (no concatenation) and each tile's f32
+  tap partials, which a second kernel sums in a fixed order. Only bch and
+  w are saved for the backward: u and mixed are recomputed from bch. A
+  CUDA tensor launches the kernels or raises, never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Tuple
+
+import torch
+
+from . import tracing
+
+# the taps the kernels are compiled for
+KERNEL_TAPS = (2, 3, 4)
+# tokens a thread walks in either kernel; a tile also reads its K - 1
+# neighbours on either side (at LFM2's shape 64 beat 16, 32, 128 and 256
+# on an H100)
+TILE = 64
+# the rows over which `conv_dw_kernel` interleaves the tiles' partials
+# (kRedRows in csrc/short_conv.cu)
+DW_ROWS = 8
+
+# CUDA kernel launches per entry point since import (or since the caller
+# last reset them); `conv_bwd` is the tile pass and the taps' sum together
+launches = {"conv_fwd": 0, "conv_bwd": 0}
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
+
+
+def dw_sum_depth(b: int, s: int) -> int:
+    """The most f32 additions that any term of a tap's gradient passes
+    through on the kernel path: the TILE products of its tile, then its
+    row's share of the b ceil(s / TILE) tiles, then the DW_ROWS rows. Each
+    addition rounds by at most 2^-24 of the running sum, so the kernels'
+    tap gradient lies within dw_sum_depth(b, s) 2^-24 of the sum of its
+    terms' absolute values from the exact sum of those terms."""
+    tiles = b * -(-s // TILE)
+    return TILE + -(-tiles // DW_ROWS) + DW_ROWS
+
+
+class _CausalConv(torch.autograd.Function):
+    """Depthwise causal convolution of u (b, s, d) bf16 with taps w (K, d)
+    f32: out[t] = sum_j w[j] * u[t - (K - 1) + j] (u is 0 before the
+    sequence), each sum in f32 from the bf16 inputs, rounded to bf16 once;
+    in the backward du likewise, and each tap's gradient an f32 sum of
+    the bf16 products grad * u. It keeps u alone for the backward, where
+    autograd's composition would keep an f32 copy of u for each tap."""
+
+    @staticmethod
+    def forward(ctx, u, w):
+        ctx.save_for_backward(u, w)
+        s, taps = u.shape[1], w.shape[0]
+        acc = u * w[taps - 1]
+        for j in range(taps - 1):
+            shift = taps - 1 - j
+            acc[:, shift:].addcmul_(u[:, :s - shift], w[j])
+        return acc.to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        u, w = ctx.saved_tensors
+        s, taps = u.shape[1], w.shape[0]
+        du = grad * w[taps - 1]
+        dw = torch.empty_like(w)
+        dw[taps - 1] = (grad * u).sum((0, 1), dtype=torch.float32)
+        for j in range(taps - 1):
+            shift = taps - 1 - j
+            du[:, :s - shift].addcmul_(grad[:, shift:], w[j])
+            dw[j] = (grad[:, shift:] * u[:, :s - shift]).sum(
+                (0, 1), dtype=torch.float32)
+        return du.to(grad.dtype), dw
+
+
+def gated_conv_plain(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The gated convolution in plain PyTorch (differentiable):
+    B, C, h = chunk(bch, 3); C * conv(B * h)."""
+    gate_b, gate_c, h = bch.chunk(3, -1)
+    return gate_c * _CausalConv.apply(gate_b * h, w)
+
+
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
+    from . import _kernels
+    fn = getattr(_kernels.library("short_conv"), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(bch: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Checks what the kernels take; returns (b, s, d, K)."""
+    if bch.dim() != 3 or w.dim() != 2 or bch.shape[-1] != 3 * w.shape[1]:
+        raise ValueError(f"the conv kernels take bch (b, s, 3d) and taps "
+                         f"(K, d); got {tuple(bch.shape)} and "
+                         f"{tuple(w.shape)}")
+    if bch.dtype != torch.bfloat16 or w.dtype != torch.float32:
+        raise ValueError(f"the conv kernels take bfloat16 bch and float32 "
+                         f"taps; got {bch.dtype} and {w.dtype}")
+    if w.device != bch.device:
+        raise ValueError("bch and the taps must be on one device")
+    (b, s, _), (taps, d) = bch.shape, w.shape
+    if taps not in KERNEL_TAPS:
+        raise ValueError(f"the conv kernels take K in {KERNEL_TAPS}; got "
+                         f"{taps}")
+    if d % 8:
+        raise ValueError(f"the conv kernels take d a multiple of 8; got {d}")
+    if b * s * 3 * d >= 2 ** 31 or b * s == 0:
+        raise ValueError(f"the conv kernels take 0 < b s 3d < 2^31; got "
+                         f"{tuple(bch.shape)}")
+    if not bch.is_contiguous() or bch.data_ptr() % 16:
+        raise ValueError("the conv kernels need bch contiguous and 16-byte "
+                         "aligned")
+    return b, s, d, taps
+
+
+def conv_fwd(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`conv_fwd` on the current stream: y (b, s, d) bf16. CUDA tensors
+    only."""
+    b, s, d, taps = _check(bch, w)
+    w = w.contiguous()
+    y = torch.empty((b, s, d), dtype=torch.bfloat16, device=bch.device)
+    fn = _kernel_fn("conv_fwd", 3, 5)
+    with torch.cuda.device(bch.device):
+        err = fn(bch.data_ptr(), w.data_ptr(), y.data_ptr(), b, s, d, taps,
+                 TILE, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_fwd kernel launch failed: CUDA error {err}")
+    _count("conv_fwd")
+    return y
+
+
+def conv_bwd(bch: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`conv_bwd` on the current stream: (dbch (b, s, 3d) bf16, dw (K, d)
+    f32) for the gradient dy (b, s, d) of y. CUDA tensors only."""
+    b, s, d, taps = _check(bch, w)
+    if (dy.shape != (b, s, d) or dy.dtype != torch.bfloat16
+            or dy.device != bch.device):
+        raise ValueError(f"dy must be bf16 {(b, s, d)} on {bch.device}; got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        dy = dy.clone(memory_format=torch.contiguous_format)
+    w = w.contiguous()
+    tiles = b * -(-s // TILE)
+    dbch = torch.empty_like(bch)
+    dw = torch.empty_like(w)
+    partials = torch.empty((tiles, taps, d), dtype=torch.float32,
+                           device=bch.device)
+    fn = _kernel_fn("conv_bwd", 6, 5)
+    with torch.cuda.device(bch.device):
+        err = fn(bch.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                 dbch.data_ptr(), partials.data_ptr(), dw.data_ptr(), b, s, d,
+                 taps, TILE, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_bwd kernel launch failed: CUDA error {err}")
+    _count("conv_bwd")
+    return dbch, dw
+
+
+class _GatedConv(torch.autograd.Function):
+    """Forward `conv_fwd`, saving (bch, w) alone; backward `conv_bwd`."""
+
+    @staticmethod
+    def forward(ctx, bch, w):
+        ctx.save_for_backward(bch, w)
+        return conv_fwd(bch, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        bch, w = ctx.saved_tensors
+        return conv_bwd(bch, w, dy)
+
+
+def gated_conv(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The gated convolution of bch (b, s, 3d) with taps w (K, d), y (b, s,
+    d), differentiable: `gated_conv_plain` on a CPU tensor, the kernel pair
+    on a CUDA tensor (bf16 bch, f32 taps), or raises. The kernel path
+    counts its rows, b x s, as `conv.fused_rows`."""
+    if bch.device.type == "cpu":
+        return gated_conv_plain(bch, w)
+    if bch.device.type != "cuda":
+        raise ValueError(f"gated_conv runs on cpu or cuda, not {bch.device}")
+    y = _GatedConv.apply(bch, w)
+    tracing.count("conv.fused_rows", bch.shape[0] * bch.shape[1])
+    return y

@@ -67,7 +67,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import tracing, xent
+from . import short_conv, tracing, xent
 from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
                           pipe_send, queue_offsets)
 from .mesh import mesh_shape
@@ -416,47 +416,14 @@ def _swiglu(x: torch.Tensor, layer: Params) -> torch.Tensor:
     return hidden @ _bf16(layer["w2"])
 
 
-class _CausalConv(torch.autograd.Function):
-    """Depthwise causal convolution of u (b, s, d) bf16 with taps w (K, d)
-    f32: out[t] = sum_j w[j] * u[t - (K - 1) + j] (u is 0 before the
-    sequence), each sum in f32 from the bf16 inputs, rounded to bf16 once;
-    in the backward du likewise, and each tap's gradient an f32 sum of
-    the bf16 products grad * u. It keeps u alone for the backward, where
-    autograd's composition would keep an f32 copy of u for each tap."""
-
-    @staticmethod
-    def forward(ctx, u, w):
-        ctx.save_for_backward(u, w)
-        s, taps = u.shape[1], w.shape[0]
-        acc = u * w[taps - 1]
-        for j in range(taps - 1):
-            shift = taps - 1 - j
-            acc[:, shift:].addcmul_(u[:, :s - shift], w[j])
-        return acc.to(u.dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        u, w = ctx.saved_tensors
-        s, taps = u.shape[1], w.shape[0]
-        du = grad * w[taps - 1]
-        dw = torch.empty_like(w)
-        dw[taps - 1] = (grad * u).sum((0, 1), dtype=torch.float32)
-        for j in range(taps - 1):
-            shift = taps - 1 - j
-            du[:, :s - shift].addcmul_(grad[:, shift:], w[j])
-            dw[j] = (grad[:, shift:] * u[:, :s - shift]).sum(
-                (0, 1), dtype=torch.float32)
-        return du.to(grad.dtype), dw
-
-
 def _short_conv(x: torch.Tensor, layer: Params) -> torch.Tensor:
     """LFM2's gated short convolution on x (b, s, d) bf16:
     B, C, h = chunk(x @ conv_in, 3); out = (C * conv(B * h)) @ conv_out,
-    the convolution depthwise and causal over `conv_w`'s taps."""
-    bch = x @ _bf16(layer["conv_in"])
-    gate_b, gate_c, h = bch.chunk(3, -1)
-    mixed = _CausalConv.apply(gate_b * h, layer["conv_w"])
-    return (gate_c * mixed) @ _bf16(layer["conv_out"])
+    the convolution depthwise and causal over `conv_w`'s taps
+    (short_conv.py: the CUDA kernel pair, its plain version on the CPU)."""
+    gated = short_conv.gated_conv(x @ _bf16(layer["conv_in"]),
+                                  layer["conv_w"])
+    return gated @ _bf16(layer["conv_out"])
 
 
 def _capacity(tokens: int, n_experts: int, factor: float) -> int:
