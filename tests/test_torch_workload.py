@@ -101,6 +101,25 @@ def test_init_params_matches_jax_layout(n_experts):
     assert abs(std - 64 ** -0.5) < 0.1 * 64 ** -0.5
 
 
+_PINNED = dict(vocab=96, d_model=64, n_heads=4, d_ff=160, n_layers=3)
+_ATTENTION_LEAVES = [("layers.wq", (3, 64, 64)), ("layers.wk", (3, 64, 64)),
+                     ("layers.wv", (3, 64, 64)), ("layers.wo", (3, 64, 64))]
+
+
+@pytest.mark.parametrize("n_experts, leaves", [
+    (0, [("layers.w1", (3, 64, 160)), ("layers.w2", (3, 160, 64))]),
+    (3, [("layers.wr", (3, 64, 3)), ("layers.w1e", (3, 3, 64, 160)),
+         ("layers.w2e", (3, 3, 160, 64))]),
+], ids=["dense", "switch"])
+def test_leaf_shapes_of_the_reference_block_are_pinned(n_experts, leaves):
+    """Names, shapes and order: `init_params` draws the leaves in this
+    order, so a seed gives the same weights only while it holds."""
+    cfg = tw.ModelConfig(**_PINNED, n_experts=n_experts)
+    assert list(tw.leaf_shapes(cfg).items()) == [
+        ("embed", (96, 64)), ("unembed", (64, 96)), *_ATTENTION_LEAVES,
+        *leaves]
+
+
 def test_params_from_jax_copies_every_key():
     cfg = jw.ModelConfig(**dict(SMALL, n_experts=2))
     tree = jax.tree.map(np.array, jw.init_params(jax.random.key(1), cfg))

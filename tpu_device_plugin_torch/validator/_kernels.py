@@ -9,7 +9,7 @@ source, the headers and the flags, so an edited kernel is rebuilt and an
 unchanged one is reused.
 
 A missing `nvcc` or a failed compile raises `RuntimeError`; nothing falls
-back to another implementation.
+back to another implementation. Every kernel is launched by `launch`.
 """
 
 from __future__ import annotations
@@ -19,8 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -98,3 +101,49 @@ def library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"no kernel source {name}.cu in {CSRC}")
         _libs[name] = ctypes.CDLL(str(paths[name]))
     return _libs[name]
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# {C entry point: (the csrc/<library>.cu defining it, its parameter types as
+# its `extern "C"` line declares them, the stream last)}; each returns 0 or
+# a CUDA error
+ENTRIES: Dict[str, Tuple[str, Tuple[type, ...]]] = {
+    "flash_fwd": ("flash_fwd", (_P,) * 5 + (_I,) * 5 + (_F, _P)),
+    "flash_bwd": ("flash_bwd", (_P,) * 9 + (_I,) * 6 + (_F, _P)),
+    "xent_fwd": ("xent", (_P,) * 4 + (_I,) * 3 + (_L,) * 3 + (_P,)),
+    "xent_bwd": ("xent", (_P,) * 5 + (_I,) * 4 + (_L,) * 3 + (_P,)),
+    "conv_fwd": ("short_conv", (_P,) * 3 + (_I,) * 5 + (_P,)),
+    "conv_bwd": ("short_conv", (_P,) * 6 + (_I,) * 5 + (_P,)),
+}
+_fns: Dict[str, Callable[..., int]] = {}
+# the one-device ring launches from a thread per member
+_count_lock = threading.Lock()
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """False for a CPU tensor (the plain version's), True for a CUDA one
+    (the kernels'); ValueError on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def launch(entry: str, device, *args, launches: Dict[str, int],
+           count: Optional[Iterable[str]] = None) -> None:
+    """The C entry point `entry` on `args` and `device`'s current stream,
+    under `torch.cuda.device(device)`; typed from `ENTRIES` on first use.
+    A non-zero return raises RuntimeError; else each name in `count`
+    (default: `entry`) gains one in the caller's `launches`."""
+    fn = _fns.get(entry)
+    if fn is None:
+        lib_name, argtypes = ENTRIES[entry]
+        fn = getattr(library(lib_name), entry)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _fns[entry] = fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        for name in (entry,) if count is None else count:
+            launches[name] += 1

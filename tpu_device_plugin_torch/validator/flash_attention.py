@@ -26,11 +26,11 @@ tiles are their own compile-time constants, so they are not arguments.
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Optional
 
 import torch
+
+from ._kernels import launch, on_card
 
 NEG_INF = -1e30
 
@@ -50,14 +50,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # CUDA kernel launches per kernel since import (or since the caller last
 # reset them); a run reads them to show it went through the kernels.
-# Counted under a lock: the one-device ring launches from several threads.
 launches = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
-_launches_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _launches_lock:
-        launches[name] += 1
 
 
 def _reference_attention(q, k, v, sm_scale: float, causal: bool):
@@ -216,16 +209,6 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float,
     return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
 
 
-def _kernel_fn(lib_name: str, n_ptrs: int, n_ints: int):
-    from . import _kernels
-    fn = getattr(_kernels.library(lib_name), lib_name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_kernel_inputs(q, *others):
     tensors = (q, *others)
     if q.dim() != 3 or any(t.shape != q.shape for t in others):
@@ -250,35 +233,21 @@ def _check_kernel_inputs(q, *others):
                          f"65535 and seq > 0; got {hb}, {seq}")
 
 
-def _on_kernel_device(q) -> bool:
-    """False for a CPU tensor (plain version), True for CUDA (kernel)."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    return True
-
-
 def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool,
                         return_lse: bool = False):
     """K1: `flash_attention_plain` on a CPU tensor, the kernel in
     csrc/flash_fwd.cu on a CUDA tensor (current stream), or raises."""
-    if not _on_kernel_device(q):
+    if not on_card(q, "flash_attention"):
         return flash_attention_plain(q, k, v, sm_scale, causal, return_lse)
     _check_kernel_inputs(q, k, v)
     hb, seq, d = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty((hb, seq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = _kernel_fn("flash_fwd", 5, 5)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr() if lse is not None else None,
-                 hb, seq, d, _DTYPE_CODE[q.dtype], int(causal),
-                 float(sm_scale), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    _count("flash_fwd")
+    launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           o.data_ptr(), lse.data_ptr() if lse is not None else None, hb, seq,
+           d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
+           launches=launches)
     return (o, lse) if return_lse else o
 
 
@@ -303,23 +272,18 @@ def launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale: float,
            or t.dtype not in (q.dtype, torch.float32) for t in outs):
         raise ValueError("dq, dk, dv must be contiguous tensors of q's shape, "
                          "of q's dtype or f32, of one dtype, on q's device")
-    fn = _kernel_fn("flash_bwd", 9, 6)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), di.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-                 hb, seq, d, _DTYPE_CODE[q.dtype], _DTYPE_CODE[outs[0].dtype],
-                 int(causal), float(sm_scale),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
-    if dk is not None:
-        _count("flash_bwd_dkv")
-    if dq is not None:
-        _count("flash_bwd_dq")
+    launch("flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           do.data_ptr(), lse.data_ptr(), di.data_ptr(), ptr(dq), ptr(dk),
+           ptr(dv), hb, seq, d, _DTYPE_CODE[q.dtype],
+           _DTYPE_CODE[outs[0].dtype], int(causal), float(sm_scale),
+           launches=launches,
+           count=[name for name, out in (("flash_bwd_dkv", dk),
+                                         ("flash_bwd_dq", dq))
+                  if out is not None])
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, causal: bool,
@@ -329,7 +293,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, causal: bool,
     tensor; K2 and K3 on a CUDA tensor, or raises. D = rowsum(dO * O) is
     `di` where given (ring attention passes the global one; `o` is then
     not read), else taken from `o`."""
-    if not _on_kernel_device(q):
+    if not on_card(q, "flash_attention"):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale,
                                          causal, out_dtype, di)
     if di is None:

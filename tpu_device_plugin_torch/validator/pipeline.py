@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from .ring_attention import _event, _take
 from .workload import (ModelConfig, Params, _bf16, _layers, _leaves,
                        _named_leaves, _nll_sum, _place, _sgd_update,
                        _token_rows, _with_leaves, resolve_device)
@@ -82,11 +83,10 @@ class ThreadLink:
     which runs one function per member, each thread on its own CUDA
     stream).
 
-    A send hands the receiver the tensor itself, with an event the sender
-    recorded after producing it: the receiver's stream waits for the
-    event, and the allocator is told the receiver's stream uses the
-    tensor. A sender never writes a tensor it has sent. A thread that
-    fails aborts the link, so the others raise instead of waiting."""
+    A send hands the receiver the tensor itself, with
+    `ring_attention._event` and `_take`; a sender never writes a tensor it
+    has sent. A thread that fails aborts the link, so the others raise
+    instead of waiting."""
 
     def __init__(self, size: int, timeout_s: float = 300.0):
         self.size, self.timeout_s = size, timeout_s
@@ -103,26 +103,6 @@ class ThreadLink:
     def abort(self) -> None:
         self._aborted.set()
         self._barrier.abort()
-
-
-def _event(t: torch.Tensor):
-    """An event recorded on the current stream after `t`, or None on the
-    CPU."""
-    if not t.is_cuda:
-        return None
-    event = torch.cuda.Event()
-    event.record()
-    return event
-
-
-def _take(tensors, event) -> None:
-    """The current stream waits for `event`; `tensors` are in use on it."""
-    if event is None:
-        return
-    stream = torch.cuda.current_stream()
-    stream.wait_event(event)
-    for t in tensors:
-        t.record_stream(stream)
 
 
 class _ThreadLinkMember:

@@ -41,7 +41,8 @@ from typing import Callable, List, Optional
 
 import torch
 
-from .flash_attention import (NEG_INF, _on_kernel_device, _row_dot,
+from ._kernels import on_card
+from .flash_attention import (NEG_INF, _row_dot,
                               flash_attention_bwd, flash_attention_fwd)
 
 
@@ -79,11 +80,10 @@ class ThreadRing:
     a ring of cards: `member(i)` is position i's ring object.
 
     A rotation hands each thread the tensors of the thread before it, by
-    reference: the ring functions never write a tensor they have sent. On
-    CUDA each thread runs on its own stream; the receiver's stream waits
-    for an event the sender recorded after producing the tensors, and the
-    allocator is told the receiver's stream uses them. A thread that fails
-    breaks the barrier, so the others raise instead of waiting forever."""
+    reference (the ring functions never write a tensor they have sent);
+    on CUDA, where each thread runs on its own stream, with `_event` and
+    `_take`. A thread that fails breaks the barrier, so the others raise
+    instead of waiting forever."""
 
     def __init__(self, size: int, timeout_s: float = 300.0):
         self.size = size
@@ -97,6 +97,27 @@ class ThreadRing:
         self._barrier.abort()
 
 
+def _event(t: torch.Tensor):
+    """An event recorded on the current stream after `t` was produced, or
+    None on the CPU: what a thread hands over with `t`."""
+    if not t.is_cuda:
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+def _take(tensors, event) -> None:
+    """The receiving thread's current stream waits for the sender's
+    `event`, and the allocator is told `tensors` are in use on it."""
+    if event is None:
+        return
+    stream = torch.cuda.current_stream()
+    stream.wait_event(event)
+    for t in tensors:
+        t.record_stream(stream)
+
+
 class _ThreadRingMember:
     def __init__(self, ring: ThreadRing, index: int):
         self._ring, self.index, self.size = ring, index, ring.size
@@ -105,19 +126,11 @@ class _ThreadRingMember:
         if self.size == 1:
             return list(tensors)
         ring = self._ring
-        event = None
-        if tensors[0].is_cuda:
-            event = torch.cuda.Event()
-            event.record()
-        ring._slots[self.index] = (tensors, event)
+        ring._slots[self.index] = (tensors, _event(tensors[0]))
         ring._barrier.wait()
-        got, got_event = ring._slots[(self.index - 1) % self.size]
+        got, event = ring._slots[(self.index - 1) % self.size]
         ring._barrier.wait()   # every slot read before any is written again
-        if got_event is not None:
-            stream = torch.cuda.current_stream()
-            stream.wait_event(got_event)
-            for t in got:
-                t.record_stream(stream)
+        _take(got, event)
         return list(got)
 
 
@@ -322,6 +335,6 @@ def ring_flash_attention(q, k, v, sm_scale: float, ring):
     """`ring_attention` with the flash kernels inside each step: K1 forward,
     K2 and K3 backward on CUDA tensors (their plain versions on the CPU).
     q, k, v must be contiguous."""
-    _on_kernel_device(q)   # cpu or cuda, nothing else
+    on_card(q, "flash_attention")   # cpu or cuda, nothing else
     return _Ring.apply(q, k, v, sm_scale, ring, ring_flash_forward,
                        ring_flash_backward)

@@ -28,13 +28,12 @@ bf16 products dmixed[t+(K-1)-j] u[t].
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
 from . import tracing
+from ._kernels import launch, on_card
 
 # the taps the kernels are compiled for
 KERNEL_TAPS = (2, 3, 4)
@@ -49,12 +48,6 @@ DW_ROWS = 8
 # CUDA kernel launches per entry point since import (or since the caller
 # last reset them); `conv_bwd` is the tile pass and the taps' sum together
 launches = {"conv_fwd": 0, "conv_bwd": 0}
-_launches_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _launches_lock:
-        launches[name] += 1
 
 
 def dw_sum_depth(b: int, s: int) -> int:
@@ -108,16 +101,6 @@ def gated_conv_plain(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return gate_c * _CausalConv.apply(gate_b * h, w)
 
 
-def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
-    from . import _kernels
-    fn = getattr(_kernels.library("short_conv"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(bch: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int]:
     """Checks what the kernels take; returns (b, s, d, K)."""
     if bch.dim() != 3 or w.dim() != 2 or bch.shape[-1] != 3 * w.shape[1]:
@@ -150,13 +133,8 @@ def conv_fwd(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, s, d, taps = _check(bch, w)
     w = w.contiguous()
     y = torch.empty((b, s, d), dtype=torch.bfloat16, device=bch.device)
-    fn = _kernel_fn("conv_fwd", 3, 5)
-    with torch.cuda.device(bch.device):
-        err = fn(bch.data_ptr(), w.data_ptr(), y.data_ptr(), b, s, d, taps,
-                 TILE, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv_fwd kernel launch failed: CUDA error {err}")
-    _count("conv_fwd")
+    launch("conv_fwd", bch.device, bch.data_ptr(), w.data_ptr(), y.data_ptr(),
+           b, s, d, taps, TILE, launches=launches)
     return y
 
 
@@ -177,14 +155,9 @@ def conv_bwd(bch: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     dw = torch.empty_like(w)
     partials = torch.empty((tiles, taps, d), dtype=torch.float32,
                            device=bch.device)
-    fn = _kernel_fn("conv_bwd", 6, 5)
-    with torch.cuda.device(bch.device):
-        err = fn(bch.data_ptr(), w.data_ptr(), dy.data_ptr(),
-                 dbch.data_ptr(), partials.data_ptr(), dw.data_ptr(), b, s, d,
-                 taps, TILE, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv_bwd kernel launch failed: CUDA error {err}")
-    _count("conv_bwd")
+    launch("conv_bwd", bch.device, bch.data_ptr(), w.data_ptr(), dy.data_ptr(),
+           dbch.data_ptr(), partials.data_ptr(), dw.data_ptr(), b, s, d, taps,
+           TILE, launches=launches)
     return dbch, dw
 
 
@@ -207,10 +180,8 @@ def gated_conv(bch: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     d), differentiable: `gated_conv_plain` on a CPU tensor, the kernel pair
     on a CUDA tensor (bf16 bch, f32 taps), or raises. The kernel path
     counts its rows, b x s, as `conv.fused_rows`."""
-    if bch.device.type == "cpu":
+    if not on_card(bch, "gated_conv"):
         return gated_conv_plain(bch, w)
-    if bch.device.type != "cuda":
-        raise ValueError(f"gated_conv runs on cpu or cuda, not {bch.device}")
     y = _GatedConv.apply(bch, w)
     tracing.count("conv.fused_rows", bch.shape[0] * bch.shape[1])
     return y

@@ -7,19 +7,14 @@ cross-entropy, and SGD with momentum, on one device or on a
 
 A second block, the hybrid one (LFM2's, e.g. LFM2-8B-A1B; chosen by
 `ModelConfig.layer_types`), runs on one device through the same entry
-points: its layers follow `layer_types`, each a gated short convolution
-(`_short_conv`) or grouped-query attention with qk-norm and RoPE
-(`_attention`), then a SwiGLU MLP in the first `n_dense_layers` and a
-dropless top-k MoE with sigmoid scores and a selection bias after them
-(`_moe_dropless`: the experts held, `w1e.shape[0]` from the first, as
-grouped products); RMSNorms with weights (`w = 1 + g`, g the leaf), and
-the head tied to the embedding. Its leaves are stacked by kind under
-`layers.` (`leaf_shapes`).
+points, with RMSNorms with weights (`w = 1 + g`, g the leaf) and the head
+tied to the embedding. Each layer of either block is a token mixer and an
+MLP of the kinds `ModelConfig.kinds` names: their functions in `MIXERS`
+and `FFNS`, their leaves in `_part_leaves` (`leaf_shapes`).
 
-- Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`,
-  stacked on a leading n_layers dim, under `embed`, `unembed` and
-  `layers.{wq,wk,wv,wo,w1,w2}` (MoE: `wr,w1e,w2e` for `w1,w2`); weights
-  from the JAX package load with `params_from_jax`.
+- Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`, a
+  layer's stacked on a leading dim; those of the JAX package load with
+  `params_from_jax`.
 - Every matmul runs in bfloat16 (weights are cast at the matmul, as the
   JAX forward does); RMSNorm and the served logits are float32; params,
   grads and momentum are float32. The training loss takes the bf16 logits
@@ -28,12 +23,9 @@ the head tied to the embedding. Its leaves are stacked by kind under
 - Attention is `flash` (the CUDA kernels in csrc/, forward and backward;
   their plain versions on the CPU), `ring` (ring_attention.py, over sp) or
   `einsum`.
-- MoE (`n_experts` > 0) routes each token to its argmax expert by an f32
-  softmax over the router logits, drops tokens past the expert's
-  capacity, and runs the experts as batched matmuls over a (E, capacity,
-  d) buffer that the kept tokens are scattered into and gathered from
-  (`_moe`); `_moe_onehot` is the JAX version's one-hot form of the same
-  function, kept as its plain version.
+- The top-1 switch MoE (`_moe`) scatters the tokens its experts keep
+  into a buffer and gathers their outputs; `_moe_onehot`, the JAX
+  version's one-hot form of it, is its plain version.
 - On a mesh, where XLA inserted the collectives from `param_specs`, the
   port calls them itself (distributed.py): `wq`/`wk`/`wv`/`w1`/`w1e` are
   column-sharded over tp (a column block of `wq` is a block of whole
@@ -58,8 +50,10 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+from collections import Counter
 from dataclasses import dataclass, fields
-from typing import Any, Dict, List, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +67,7 @@ from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
 from .mesh import mesh_shape
 
 Params = Dict[str, Any]
+Shapes = Dict[str, Tuple[int, ...]]
 
 
 @dataclass(frozen=True)
@@ -140,12 +135,16 @@ class ModelConfig:
         return bool(self.layer_types)
 
     def kinds(self, n: int) -> List[Tuple[str, str]]:
-        """(token mixer, MLP) of each of `n` layers: "attention" or "conv",
-        and "dense" or "moe"."""
-        return [("conv" if self.layer_types and self.layer_types[i] == "conv"
-                 else "attention",
-                 "moe" if self.n_experts and i >= self.n_dense_layers
-                 else "dense") for i in range(n)]
+        """(token mixer, MLP) of each of `n` layers, keys of `MIXERS` and
+        `FFNS`: above, "attention" and "mlp", or "switch" with n_experts;
+        in the hybrid block "conv" or "qk_norm_attention" by `layer_types`,
+        and "swiglu", or "dropless" past n_dense_layers with n_experts."""
+        if not self.hybrid:
+            return [("attention", "switch" if self.n_experts else "mlp")] * n
+        return [("conv" if self.layer_types[i] == "conv"
+                 else "qk_norm_attention",
+                 "dropless" if self.n_experts and i >= self.n_dense_layers
+                 else "swiglu") for i in range(n)]
 
 
 _ATTENTION = ("attention", "full_attention")
@@ -153,57 +152,27 @@ _HYBRID_NUMBERS = ("n_kv_heads", "n_dense_layers", "expert_d_ff",
                    "experts_per_token", "experts_held", "rope_theta",
                    "norm_eps")
 CONV_TAPS = 3   # the short convolution's taps (LFM2's conv_L_cache)
-# the leaves of each kind of layer (`leaf_shapes`), and of every layer
-_GROUPS = {"attention": ("wq", "wk", "wv", "wo", "q_norm", "k_norm"),
-           "conv": ("conv_in", "conv_w", "conv_out"),
-           "dense": ("w1", "w3", "w2"),
-           "moe": ("wr", "w1e", "w3e", "w2e", "moe_bias"),
-           "every": ("op_norm", "ffn_norm")}
-_GROUP_OF = {key: group for group, keys in _GROUPS.items() for key in keys}
 # norm weights are stored as offsets from 1 and drawn as 0 here; the bias
 # only selects experts
 _ZERO_INIT = ("q_norm", "k_norm", "op_norm", "ffn_norm", "final_norm",
               "moe_bias")
 
 
-def leaf_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+def leaf_shapes(cfg: ModelConfig) -> Shapes:
     """{dotted leaf name: shape}, in the order `init_params` draws them:
-    `embed`, `unembed` (the block above only), then under `layers.` each
-    kind's leaves stacked on the layers of that kind, and `final_norm`
-    (the hybrid block only). The block above gives `layers.{wq,wk,wv,wo}`
-    and `{w1,w2}` or `{wr,w1e,w2e}`, stacked on all n_layers."""
-    d, ff, e, v = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.vocab
-    dh = d // cfg.n_heads
-    kv = (cfg.n_kv_heads or cfg.n_heads) * dh
-    fe, held = cfg.expert_d_ff or ff, cfg.experts_held or e
-    kinds = cfg.kinds(cfg.n_layers)
-    n = {k: sum(k in pair for pair in kinds)
-         for k in ("attention", "conv", "dense", "moe")}
-    hy = cfg.hybrid
-    shapes: Dict[str, Tuple[int, ...]] = {"embed": (v, d)}
-    if not hy:
-        shapes["unembed"] = (d, v)
-    layers = {
-        "attention": {"wq": (d, d), "wk": (d, kv), "wv": (d, kv),
-                      "wo": (d, d), **({"q_norm": (dh,), "k_norm": (dh,)}
-                                       if hy else {})},
-        "conv": {"conv_in": (d, 3 * d), "conv_w": (CONV_TAPS, d),
-                 "conv_out": (d, d)},
-        "moe": {"wr": (d, e), "w1e": (held, d, fe),
-                **({"w3e": (held, d, fe)} if hy else {}),
-                "w2e": (held, fe, d), **({"moe_bias": (e,)} if hy else {})},
-        "dense": {"w1": (d, ff), **({"w3": (d, ff)} if hy else {}),
-                  "w2": (ff, d)},
-    }
-    if hy:
-        layers["every"] = {"op_norm": (d,), "ffn_norm": (d,)}
-        n["every"] = cfg.n_layers
-    for kind, leaves in layers.items():
+    the block's leaves before the layers (`_block_leaves`); under `layers.`
+    each kind's (`_part_leaves`), stacked on the layers of that kind, then
+    the block's of every layer; the block's leaves after the layers."""
+    first, every, last = _block_leaves(cfg)
+    n = Counter(kind for pair in cfg.kinds(cfg.n_layers) for kind in pair)
+    shapes = dict(first)
+    for kind, leaves in _part_leaves(cfg).items():
         if n[kind]:
             shapes.update({f"layers.{key}": (n[kind], *shape)
                            for key, shape in leaves.items()})
-    if hy:
-        shapes["final_norm"] = (d,)
+    shapes.update({f"layers.{key}": (cfg.n_layers, *shape)
+                   for key, shape in every.items()})
+    shapes.update(last)
     return shapes
 
 
@@ -345,8 +314,9 @@ def _head_norm_rope(t: torch.Tensor, offset: torch.Tensor, rope,
 
 
 def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-               attention: str = "einsum",
-               ax: Optional[_Axes] = None) -> torch.Tensor:
+               attention: str = "einsum", ax: Optional[_Axes] = None,
+               qk_norm: bool = False) -> torch.Tensor:
+    """Causal attention; with `qk_norm`, `_head_norm_rope` on q and k."""
     b, s, _ = x.shape
     dh = cfg.d_model // cfg.n_heads
     h = layer["wq"].shape[-1] // dh   # this rank's heads
@@ -356,7 +326,7 @@ def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     q = (x @ _bf16(layer["wq"])).reshape(b, s, h, dh)
     k = (x @ _bf16(layer["wk"])).reshape(b, s, kv, dh)
     v = (x @ _bf16(layer["wv"])).reshape(b, s, kv, dh)
-    if cfg.hybrid:
+    if qk_norm:
         rope = _rotary(s, dh, cfg.rope_theta, x.device)
         q = _head_norm_rope(q, layer["q_norm"], rope, cfg.norm_eps)
         k = _head_norm_rope(k, layer["k_norm"], rope, cfg.norm_eps)
@@ -691,6 +661,17 @@ def _rms_norm(x: torch.Tensor, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def _block_leaves(cfg: ModelConfig) -> Tuple[Shapes, Shapes, Shapes]:
+    """The block's own leaves, no part's: before the layers (`embed`; and
+    `unembed` unless `_logits` ties the head), of every layer (the hybrid
+    block's norm offsets, `_block_norm`), after them (`final_norm`)."""
+    d, v = cfg.d_model, cfg.vocab
+    if cfg.hybrid:
+        return ({"embed": (v, d)}, {"op_norm": (d,), "ffn_norm": (d,)},
+                {"final_norm": (d,)})
+    return {"embed": (v, d), "unembed": (d, v)}, {}, {}
+
+
 def _block_norm(x: torch.Tensor, leaves: Params, key: str,
                 cfg: ModelConfig) -> torch.Tensor:
     """The block's RMSNorm at cfg's eps: gain-less in the block above,
@@ -698,32 +679,66 @@ def _block_norm(x: torch.Tensor, leaves: Params, key: str,
     return _rms_norm(x, cfg.norm_eps, leaves[key] if cfg.hybrid else None)
 
 
+def _part_leaves(cfg: ModelConfig) -> Dict[str, Shapes]:
+    """Each kind of `MIXERS` and `FFNS` with its leaves, {name: one layer's
+    shape}, in the order `leaf_shapes` stacks them, and so `init_params`
+    draws them: the mixers, the MoE kinds, the dense ones."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dh = d // cfg.n_heads
+    kv = (cfg.n_kv_heads or cfg.n_heads) * dh
+    fe, held = cfg.expert_d_ff or ff, cfg.experts_held or e
+    attention = {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d)}
+    w1e, w2e = (held, d, fe), (held, fe, d)
+    return {
+        "attention": attention,
+        "qk_norm_attention": {**attention, "q_norm": (dh,), "k_norm": (dh,)},
+        "conv": {"conv_in": (d, 3 * d), "conv_w": (CONV_TAPS, d),
+                 "conv_out": (d, d)},
+        "switch": {"wr": (d, e), "w1e": w1e, "w2e": w2e},
+        "dropless": {"wr": (d, e), "w1e": w1e, "w3e": w1e, "w2e": w2e,
+                     "moe_bias": (e,)},
+        "mlp": {"w1": (d, ff), "w2": (ff, d)},
+        "swiglu": {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)},
+    }
+
+
+class _Part(NamedTuple):
+    """A kind of token mixer or MLP (`ModelConfig.kinds`; its leaves in
+    `_part_leaves`): its span (tracing.py) and its output
+    run(h, layer, cfg, attention, ax) for the normed stream h."""
+    span: str
+    run: Callable[..., torch.Tensor]
+
+
+MIXERS: Dict[str, _Part] = {
+    "attention": _Part("workload.attention", _attention),
+    "qk_norm_attention": _Part("workload.attention",
+                               partial(_attention, qk_norm=True)),
+    "conv": _Part("workload.conv", lambda h, layer, *_: _short_conv(h, layer)),
+}
+FFNS: Dict[str, _Part] = {
+    "switch": _Part("workload.ffn",
+                    lambda h, layer, cfg, _, ax: _moe(h, layer, cfg, ax)),
+    "dropless": _Part("workload.ffn",
+                      lambda h, layer, cfg, *_: _moe_dropless(h, layer, cfg)),
+    "mlp": _Part("workload.ffn", lambda h, layer, _, __, ax: _mlp(h, layer, ax)),
+    "swiglu": _Part("workload.ffn", lambda h, layer, *_: _swiglu(h, layer)),
+}
+
+
 def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                 attention: str, ax: Optional[_Axes],
                 kind: Tuple[str, str]) -> torch.Tensor:
-    """One transformer block (token mixer + MoE/MLP residuals), each half
-    under its span (tracing.py), forward and backward. `kind` is the
-    layer's (mixer, MLP) of `cfg.kinds`."""
+    """One layer: its token mixer, then its MLP, each on the normed stream
+    and added to it, under its part's span. `kind` is the layer's (mixer,
+    MLP) of `cfg.kinds`."""
     mixer, ffn = kind
-    name = "workload.conv" if mixer == "conv" else "workload.attention"
-    with tracing.span(name):
-        h = _block_norm(x, layer, "op_norm", cfg)
-        if mixer == "conv":
-            y = x + _short_conv(h, layer)
-        else:
-            y = x + _attention(h, layer, cfg, attention, ax)
-        x = tracing.backward(name, x, y)
-    with tracing.span("workload.ffn"):
-        h = _block_norm(x, layer, "ffn_norm", cfg)
-        if ffn == "moe" and cfg.hybrid:
-            y = x + _moe_dropless(h, layer, cfg)
-        elif ffn == "moe":
-            y = x + _moe(h, layer, cfg, ax)
-        elif cfg.hybrid:
-            y = x + _swiglu(h, layer)
-        else:
-            y = x + _mlp(h, layer, ax)
-        return tracing.backward("workload.ffn", x, y)
+    for part, norm in ((MIXERS[mixer], "op_norm"), (FFNS[ffn], "ffn_norm")):
+        with tracing.span(part.span):
+            h = _block_norm(x, layer, norm, cfg)
+            y = x + part.run(h, layer, cfg, attention, ax)
+            x = tracing.backward(part.span, x, y)
+    return x
 
 
 def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -742,23 +757,19 @@ def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def _layers(x: torch.Tensor, layers: Params, cfg: ModelConfig,
             attention: str, ax: Optional[_Axes]) -> torch.Tensor:
     """x through each layer of the stacked `layers`, in order: layer i
-    takes the next slice of each leaf of its kinds (`cfg.kinds`); under
-    `cfg.remat` each layer is recomputed in the backward."""
+    takes the next slice of each leaf of its mixer and MLP (`cfg.kinds`)
+    and of each of the block's leaves of every layer (`_block_leaves`);
+    under `cfg.remat` each layer is recomputed in the backward."""
     # unbind, not w[i]: its backward stacks the layers' grads once, where
     # each w[i]'s would fill and add a zero grad of the whole stack
-    slices: Dict[str, List[Params]] = {}
-    for name, stacked in layers.items():
-        group = slices.setdefault(_GROUP_OF[name], [])
-        for i, w in enumerate(stacked.unbind(0)):
-            if i == len(group):
-                group.append({})
-            group[i][name] = w
+    slices = {name: iter(stacked.unbind(0)) for name, stacked in layers.items()}
     n = len(cfg.layer_types) or next(iter(layers.values())).shape[0]
-    taken = {group: iter(per_layer) for group, per_layer in slices.items()}
-    for kind in cfg.kinds(n):
-        layer: Params = {}
-        for group in (*kind, "every") if cfg.hybrid else kind:
-            layer.update(next(taken[group]))
+    kinds = cfg.kinds(n)
+    leaves, every = _part_leaves(cfg), _block_leaves(cfg)[1]
+    names = {kind: (*leaves[kind[0]], *leaves[kind[1]], *every)
+             for kind in set(kinds)}
+    for kind in kinds:
+        layer = {name: next(slices[name]) for name in names[kind]}
         if cfg.remat:
             x = checkpoint(_layer_body, x, layer, cfg, attention, ax, kind,
                            use_reentrant=False)

@@ -22,23 +22,16 @@ t >= T, where g is the gradient of the sum.
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
 from . import tracing
+from ._kernels import launch, on_card
 
 # CUDA kernel launches per kernel since import (or since the caller last
 # reset them); a run reads them to show its heads went through the kernels
 launches = {"xent_fwd": 0, "xent_bwd": 0}
-_launches_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _launches_lock:
-        launches[name] += 1
 
 
 def nll_sum_plain(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -55,16 +48,6 @@ def nll_rows_plain(logits: torch.Tensor, targets: torch.Tensor
     x = logits.float()[:, :targets.shape[1]]
     lse = torch.logsumexp(x, dim=-1)
     return lse, lse - torch.gather(x, -1, targets[..., None].long())[..., 0]
-
-
-def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
-    from . import _kernels
-    fn = getattr(_kernels.library("xent"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _kernel_targets(logits: torch.Tensor, targets: torch.Tensor
@@ -105,14 +88,9 @@ def nll_rows(logits: torch.Tensor, targets: torch.Tensor
     (b, _, v), t = logits.shape, targets.shape[1]
     lse, nll = (torch.empty((b, t), dtype=torch.float32, device=logits.device)
                 for _ in range(2))
-    fn = _kernel_fn("xent_fwd", 4, 3)
-    with torch.cuda.device(logits.device):
-        err = fn(logits.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-                 nll.data_ptr(), b, t, v, logits.stride(0), logits.stride(1),
-                 targets.stride(0), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"xent_fwd kernel launch failed: CUDA error {err}")
-    _count("xent_fwd")
+    launch("xent_fwd", logits.device, logits.data_ptr(), targets.data_ptr(),
+           lse.data_ptr(), nll.data_ptr(), b, t, v, logits.stride(0),
+           logits.stride(1), targets.stride(0), launches=launches)
     return lse, nll
 
 
@@ -132,15 +110,10 @@ def nll_grad(logits: torch.Tensor, targets: torch.Tensor, lse: torch.Tensor,
     g = g.float().contiguous()
     dlogits = torch.empty((b, s, v), dtype=torch.bfloat16,
                           device=logits.device)
-    fn = _kernel_fn("xent_bwd", 5, 4)
-    with torch.cuda.device(logits.device):
-        err = fn(logits.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-                 g.data_ptr(), dlogits.data_ptr(), b, s, t, v,
-                 logits.stride(0), logits.stride(1), targets.stride(0),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"xent_bwd kernel launch failed: CUDA error {err}")
-    _count("xent_bwd")
+    launch("xent_bwd", logits.device, logits.data_ptr(), targets.data_ptr(),
+           lse.data_ptr(), g.data_ptr(), dlogits.data_ptr(), b, s, t, v,
+           logits.stride(0), logits.stride(1), targets.stride(0),
+           launches=launches)
     return dlogits
 
 
@@ -165,10 +138,8 @@ def nll_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     (B, T), T <= S, f32 and differentiable: `nll_sum_plain` on a CPU
     tensor, the kernel pair on a CUDA tensor (bf16 logits), or raises.
     The kernel path counts its rows, B x T, as `head.fused_rows`."""
-    if logits.device.type == "cpu":
+    if not on_card(logits, "nll_sum"):
         return nll_sum_plain(logits, targets)
-    if logits.device.type != "cuda":
-        raise ValueError(f"nll_sum runs on cpu or cuda, not {logits.device}")
     loss = _NLLSum.apply(logits, targets)
     tracing.count("head.fused_rows", targets.shape[0] * targets.shape[1])
     return loss
