@@ -14,7 +14,10 @@ failure:
    (`tol_ratio` <= 1), at the main path's shape and at small ragged
    shapes, and time the kernel (with its `bound_share` and TFLOP/s), the
    plain version, and the one PyTorch call computing the same function
-   (`library_ms`, a yardstick the port never calls); the same for the
+   (`library_ms`, a yardstick the port never calls), and K2 also at the
+   other training cells' attention shapes (K2_CELL_SHAPES), timed beside
+   its bound and its first heads held against its plain version; the same
+   for the
    training head's NLL kernel pair (xent_fwd, xent_bwd) at switch-base-8's
    and pythia-1.4b's head shapes and a ragged vocab, timed at Switch's
    beside its bound by bytes, its plain version and `F.cross_entropy` on
@@ -120,6 +123,13 @@ GRAD_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
 GRAD_ATOL = {"bfloat16": 1e-4, "float32": 1e-5}
 FLIP_RTOL = 2 ** -7
 LSE_TOL = 1e-3
+# K2 timed also at the attention of the other training cells, causal bf16:
+# {cell: (hb, seq, d, heads held against the plain version)}; LFM2's 2 x
+# 32 expanded heads over 8192, Switch's 128 x 12 heads over 512. K2 makes
+# each head's dk and dv apart from the others', so the first heads alone
+# are compared (the plain version of all of LFM2's would need some 70 GB).
+K2_CELL_SHAPES = {"lfm2-8b-a1b.train": (64, 8192, 64, 2),
+                  "switch-base-8.train": (1536, 512, 64, 16)}
 # The head's NLL kernels vs their plain version, from the same bf16
 # logits in f32: each row's lse and NLL within NLL_ATOL (exp is
 # ex2.approx, ~2^-22 relative; the row's sums run in another order), the
@@ -503,7 +513,45 @@ def check_flash_bwd(torch, fa, dev):
             "ok": all(c["ok"] for c in errs[name]),
             "checks": len(errs[name]),
         })
+    entries[0]["at_cells"] = time_dkv_at_cells(torch, fa, dev, gen)
     return entries
+
+
+def time_dkv_at_cells(torch, fa, dev, gen) -> list:
+    """K2 at K2_CELL_SHAPES: timed beside its bound, and its first heads
+    held against the plain version (`tol_ratio` <= 1)."""
+    lines = []
+    for cell, (hb, seq, d, heads) in K2_CELL_SHAPES.items():
+        q, k, v, do = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, True, True)
+        di = (do.float() * o.float()).sum(-1)
+        dk, dv = torch.empty_like(q), torch.empty_like(q)
+        ms = _cuda_ms(torch, lambda: fa.launch_bwd(
+            q, k, v, do, lse, di, None, dk, dv, scale, True), 10)
+        args = (*(t[:heads] for t in (q, k, v, do, lse, di)), scale, True)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args)
+        term_dk, term_dv = fa.rounding_terms_dkv(*args)
+        err_dk = _elem_err(dk[:heads], ref_dk, "bfloat16", term_dk)
+        err_dv = _elem_err(dv[:heads], ref_dv, "bfloat16", term_dv)
+        err = {key: max(err_dk[key], err_dv[key]) for key in err_dk}
+        ok = err["tol_ratio"] <= 1.0 and all(
+            bool(torch.isfinite(t).all()) for t in (dk, dv))
+        bound_ms, bound_by, flops = bwd_bounds(hb, seq, d, "bfloat16",
+                                               True)["flash_bwd_dkv"]
+        line = dict(kernel="flash_bwd_dkv", cell=cell, hb=hb, seq=seq, d=d,
+                    dtype="bfloat16", causal=True, ms=ms, bound_ms=bound_ms,
+                    bound_by=bound_by, **_speed(ms, bound_ms, flops),
+                    checked_heads=heads, **err, ok=ok)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del q, k, v, do, o, lse, di, dk, dv, ref_dk, ref_dv, term_dk, term_dv
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"flash_bwd_dkv disagrees with its plain "
+                                 f"version at {cell}'s shape: {line}")
+    return lines
 
 
 def xent_bounds(b: int, s: int, t: int, v: int):

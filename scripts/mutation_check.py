@@ -68,6 +68,11 @@ VARIANTS = [
      "constexpr int DQ_STAGES = 2;            // K / V ring depth",
      "constexpr int DQ_STAGES = 3;            // K / V ring depth",
      "check_flash_bwd"),
+    ("K2 with a two-stage Q / dO / lse / D ring",
+     f"{CSRC}/flash_bwd.cu",
+     "constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth",
+     "constexpr int TC_STAGES = 2;            // Q / dO / lse / D ring depth",
+     "check_flash_bwd"),
 ]
 
 CHILD = """

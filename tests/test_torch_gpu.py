@@ -145,6 +145,41 @@ def test_backward_kernels_match_plain(cuda_device, dtype, d, causal, seq):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hb,seq,d", [(2, 2048, 128), (1, 8192, 64),
+                                      (8, 512, 64), (2, 1000, 128),
+                                      (3, 517, 64)])
+def test_dkv_kernel_at_the_cells_shapes(cuda_device, hb, seq, d, causal,
+                                        out_dtype):
+    """K2 alone at the training cells' attention (Pythia's d 128 over
+    2048, LFM2's d 64 over 8192 with hb cut, Switch's d 64 over 512) and
+    at ragged lengths: against its plain version, and bit for bit the same
+    on a second launch."""
+    q, k, v, do = inputs(hb, seq, d, "bfloat16", cuda_device, seed=seq + d,
+                         n=4)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+    di = (do.float() * o.float()).sum(-1)
+    out = getattr(torch, out_dtype)
+    runs = []
+    before = fa.launches["flash_bwd_dkv"]
+    for _ in range(2):
+        dk, dv = (torch.empty(q.shape, dtype=out, device=cuda_device)
+                  for _ in range(2))
+        fa.launch_bwd(q, k, v, do, lse, di, None, dk, dv, scale, causal)
+        runs.append((dk, dv))
+    torch.cuda.synchronize()
+    assert fa.launches["flash_bwd_dkv"] == before + 2
+    refs = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di, scale, causal)
+    terms = fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, causal)
+    for name, g, ref, term in zip(("dk", "dv"), runs[0], refs, terms):
+        assert torch.isfinite(g).all(), name
+        assert grad_close(g, ref, out_dtype, term), name
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
 def test_backward_kernels_f32_out_and_one_pass_alone(cuda_device):
     """out_dtype f32 from bf16 inputs, and K2 / K3 launched alone."""
     q, k, v, do = inputs(2, 200, 64, "bfloat16", cuda_device, seed=1, n=4)

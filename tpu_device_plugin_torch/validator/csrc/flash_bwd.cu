@@ -21,20 +21,42 @@
 // tensor cores, in the transposed orientation, so that P and dS are born
 // in the layout their products need and nothing is staged through shared
 // memory.
-// - One block per (128-row key tile, hb), heavy tiles first: two consumer
-//   warpgroups of 64 key rows each, with K and V resident in shared memory,
-//   and one producer warp that streams 64-row Q and dO tiles by TMA, and
-//   the tiles' lse and D rows by its lanes, through a two-stage mbarrier
-//   ring, starting at the diagonal when causal. setmaxnreg gives the
-//   consumers 240 registers: dK and dV stay in f32 registers (64 + 64 per
-//   thread at d 128).
-// - S^T = K Q^T and dP^T = V dO^T are wgmma SS products; P^T = exp(S^T
-//   scale - lse[col]) and dS^T = P^T (dP^T - D[col]) scale run on the
-//   accumulator fragments; each is rounded to bf16 in registers, as the
-//   JAX kernel rounds them (:224, :227), and is the A operand of the RS
-//   products dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major.
-//   `flash_bwd_dkv_plain` rounds the same P and dS.
-// - No atomics: the result is deterministic.
+// - One block per (128-row key tile, hb): two consumer warpgroups of 64
+//   key rows each, with K and V resident in shared memory, and one
+//   producer warp that streams 64-row Q and dO tiles by TMA, and the
+//   tiles' lse and D rows by its lanes, through a three-stage mbarrier
+//   ring, starting at the diagonal when causal; the lanes load a stage's
+//   rows while its TMA is in flight. setmaxnreg gives the consumers 240
+//   registers: dK and dV stay in f32 registers (64 + 64 per thread at d
+//   128).
+// - Per query tile a warpgroup makes S^T = K Q^T and dP^T = V dO^T (wgmma
+//   SS products), then P^T = exp(S^T scale - lse[col]) and dS^T = P^T
+//   (dP^T - D[col]) scale on the accumulator fragments, each rounded to
+//   bf16 in registers, as the JAX kernel rounds them (:224, :227), and the
+//   A operand of the RS products dV += P^T dO and dK += dS^T Q, with dO and
+//   Q read MN-major. `flash_bwd_dkv_plain` rounds the same P and dS.
+// - What bounds it: the four products take 8 d FLOPs a pair on the tensor
+//   cores; P and dS take about ten instructions a pair on the CUDA cores,
+//   an exp2 among them: near half the tensor time at d 64. Run in turn
+//   within one warpgroup, each side waits on the other. So the two
+//   warpgroups take turns on the tensor cores (named barriers, as
+//   FlashAttention-3 schedules its softmax): a turn issues the RS pair of
+//   the last tile, waits for it, issues the SS pair of the next, hands the
+//   tensor cores to the other warpgroup, and computes the next tile's P
+//   and dS while the other's products run. The fragments are never live
+//   beside S^T and dP^T, and P and dS read lse and D a 16-column slice at
+//   a time, with no mask outside edge tiles: at d 128 dK, dV, S^T and dP^T
+//   take 192 of the 240 registers and nothing spills (the first design
+//   spilled 472 bytes there, and ptxas serialized its wgmmas). Issuing the
+//   scores behind the RS pair unwaited, which d 64 has the registers for,
+//   gained nothing there; a third ring stage takes 8-16% off the time of
+//   two at the training cells' shapes, and loading the rows by TMA
+//   instead of the lanes at most 1.5%.
+// - Causal, warpgroup 1 skips the block's first query tile, which lies
+//   wholly above its keys; only tiles that cross the diagonal or `seq`
+//   are masked.
+// - Each warpgroup adds its query tiles in order: dK and dV are
+//   deterministic, with no atomics.
 //
 // K3 for bf16 inputs (flash_bwd_dq_wgmma_kernel; bf16 or f32 outputs):
 // tensor cores, in K1's orientation: the accumulator rows are queries, so
@@ -77,7 +99,7 @@
 //   template parameter, so the stores do not branch), so the ring path's
 //   f32 partials from bf16 inputs need no other kernel (:277-280).
 // - At d = 128 the scalar K2's tiles take 170 KB and K3's 153 KB of shared
-//   memory, the tensor-core K2's and K3's 130 and 129 KB (bf16): dynamic
+//   memory, the tensor-core K2's and K3's 163 and 129 KB (bf16): dynamic
 //   shared memory, raised with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
@@ -384,9 +406,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int TC_BK = 128;              // key rows per block: 64 per consumer warpgroup
 constexpr int TC_BQ = 64;               // query rows per streamed tile
-constexpr int TC_STAGES = 2;            // Q / dO / lse / D ring depth
+constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth
 constexpr int TC_THREADS = 384;         // consumer warpgroups 0 and 1, producer 2
 constexpr int TC_CONSUMER_WARPS = 8;
+constexpr int TC_TURN = 1;              // named barriers TC_TURN + wg: warpgroup wg's turn
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> struct DkvSmem {
@@ -407,6 +430,74 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = sm90::pack_bf16(a, b);
+}
+
+// P^T = exp(S^T scale - lse[col]) and dS^T = P^T (dP^T - D[col]) scale on
+// one warpgroup's 64 keys x 64 queries, dS from the f32 P as in the JAX
+// kernel, each pair rounded to a bf16 A fragment as soon as it is made, so
+// the f32 tiles die element by element. A 16-column slice kk takes 4
+// columns of lse and D per thread, read as it goes. With EDGE (tiles on
+// the diagonal or at `seq`) both are 0 outside the valid region; other
+// tiles need no test. slse holds lse in log2 units.
+template <bool EDGE>
+__device__ __forceinline__ void dkv_p_ds(uint32_t (&pa)[TC_BQ / 16][4],
+                                         uint32_t (&da)[TC_BQ / 16][4],
+                                         const float (&st)[TC_BQ / 2],
+                                         const float (&dpt)[TC_BQ / 2],
+                                         const float* slse, const float* sdi,
+                                         int l, int kr, int q0, int seq,
+                                         int causal, float scale_log2,
+                                         float scale) {
+#pragma unroll
+  for (int kk = 0; kk < TC_BQ / 16; ++kk) {
+    // accumulator index i = 8 kk + 2 c + x = 4 j + e: column 8 j + 2 (l % 4)
+    // + x of row kr + 8 (c % 2), j = 2 kk + c / 2
+    float2 lse[2], dcol[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 8 * (2 * kk + h) + 2 * (l % 4);
+      lse[h] = *reinterpret_cast<const float2*>(slse + col);
+      dcol[h] = *reinterpret_cast<const float2*>(sdi + col);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float p2[2], ds2[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = 8 * kk + 2 * c + x;
+        const float lse2 = x ? lse[c / 2].y : lse[c / 2].x;
+        const float dq = x ? dcol[c / 2].y : dcol[c / 2].x;
+        if constexpr (EDGE) {
+          const int key = kr + 8 * (c % 2);
+          const int row = q0 + 8 * (2 * kk + c / 2) + 2 * (l % 4) + x;
+          const bool ok = row < seq && key < seq && (!causal || key <= row);
+          p2[x] = ok ? exp2f(st[i] * scale_log2 - lse2) : 0.f;
+          ds2[x] = ok ? p2[x] * (dpt[i] - dq) * scale : 0.f;
+        } else {
+          p2[x] = exp2f(st[i] * scale_log2 - lse2);
+          ds2[x] = p2[x] * (dpt[i] - dq) * scale;
+        }
+      }
+      pa[kk][c] = sm90::pack_bf16(p2[0], p2[1]);
+      da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
+    }
+  }
+}
+
+// acc = A B^T over D (SS, both K-major): A the warpgroup's 64 rows of the
+// resident K or V tile (`a`, its descriptor), B a streamed Q or dO tile
+template <int D>
+__device__ __forceinline__ void dkv_scores(float (&acc)[TC_BQ / 2], uint64_t a,
+                                           int wg, const uint8_t* b_tile) {
+  using KT = sm90::Tile<TC_BK, D>;
+  using QT = sm90::Tile<TC_BQ, D>;
+  const uint64_t ad = sm90::opaque(a);
+  const uint64_t bd = sm90::opaque(QT::kmajor(b_tile));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::Wgmma<TC_BQ>::ss(acc, KT::kmajor_at(ad, 64 * wg, kk),
+                           QT::kmajor_at(bd, 0, kk), kk > 0);
+  sm90::wgmma_commit();
 }
 
 template <typename O, int D>
@@ -432,6 +523,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   const int hb = blockIdx.y;
   const int num_q = (seq + TC_BQ - 1) / TC_BQ;
   const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal
+  const int n = num_q - q_begin;                 // query tiles streamed
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -461,114 +553,119 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       for (int qt = q_begin; qt < num_q; ++qt) {
         const int i = qt - q_begin, s = i % TC_STAGES, q0 = qt * TC_BQ;
         sm90::mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
-        float* slse = reinterpret_cast<float*>(smem + L::LSE_OFF) + s * TC_BQ;
-        float* sdi = reinterpret_cast<float*>(smem + L::DI_OFF) + s * TC_BQ;
-        for (int r = lane; r < TC_BQ; r += 32) {
-          const bool in = q0 + r < seq;
-          slse[r] = in ? lse[rows + q0 + r] * LOG2E : 0.f;   // log2 units
-          sdi[r] = in ? di[rows + q0 + r] : 0.f;
-        }
+        // the tiles' TMA first, so that the rows' loads run under it; each
+        // lane arrives after its own stores
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[s], 2 * QT::BYTES);
+          sm90::mbar_expect_tx(&full[s], 2 * QT::BYTES);
           uint8_t* sq = smem + L::Q_OFF + s * QT::BYTES;
           uint8_t* sdo = smem + L::DO_OFF + s * QT::BYTES;
           for (int b = 0; b < QT::BOXES; ++b) {
             sm90::tma_load_3d(sq + b * QT::BOX_BYTES, &mq, &full[s], b * QT::W, q0, hb);
             sm90::tma_load_3d(sdo + b * QT::BOX_BYTES, &mdo, &full[s], b * QT::W, q0, hb);
           }
-        } else {
-          sm90::mbar_arrive(&full[s]);
         }
+        float* slse = reinterpret_cast<float*>(smem + L::LSE_OFF) + s * TC_BQ;
+        float* sdi = reinterpret_cast<float*>(smem + L::DI_OFF) + s * TC_BQ;
+#pragma unroll
+        for (int j = 0; j < TC_BQ / 32; ++j) {
+          const int r = lane + 32 * j;
+          const bool in = q0 + r < seq;
+          slse[r] = in ? lse[rows + q0 + r] * LOG2E : 0.f;   // log2 units
+          sdi[r] = in ? di[rows + q0 + r] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
       }
     }
   } else {
-    // consumers, transposed: warpgroup wg owns key rows
-    // [k0 + 64 wg, k0 + 64 wg + 64), this thread rows kr and kr + 8; the
-    // accumulator columns are the tile's 64 query rows
+    // consumers, transposed: warpgroup cw owns key rows
+    // [key_lo, key_lo + 64), this thread rows kr and kr + 8; the
+    // accumulator columns are the tile's 64 query rows. cw is wg made
+    // warp-uniform (a broadcast), so that ptxas sees every branch below as
+    // uniform and keeps the wgmmas asynchronous.
     sm90::regs_alloc<240>();
+    const int cw = __shfl_sync(0xffffffffu, wg, 0);
     const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
-    const int kr = k0 + 64 * wg + 16 * w + l / 4;
+    const int key_lo = k0 + 64 * cw;
+    const int kr = key_lo + 16 * w + l / 4;
     const float scale_log2 = scale * LOG2E;
     const uint64_t k_desc = KT::kmajor(smem);
     const uint64_t v_desc = KT::kmajor(smem + L::V_OFF);
     float adk[D / 2], adv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+    uint32_t pa[TC_BQ / 16][4], da[TC_BQ / 16][4];
 
+    // Causal, the first tile (queries k0 .. k0 + 63) lies wholly above
+    // warpgroup 1's keys: it takes the tiles from the second on. Each
+    // warpgroup takes one turn on the tensor cores per tile it takes, and
+    // one more. Turn p issues the products of the tile before (dV, dK),
+    // waits for them, issues the scores of the next (S^T, dP^T), hands the
+    // tensor cores to the other warpgroup, and computes that tile's P and
+    // dS while the other's products run. The fragments are never live
+    // beside S^T and dP^T, which at d 128 keeps the turn in 240 registers.
+    const int first = causal && cw == 1;
+    const int m = n - first;                             // tiles taken
+    const int handovers = n + 1 - (causal && cw == 0) - (cw == 1);
+    const uint8_t* sq0 = smem + L::Q_OFF;
+    const uint8_t* sdo0 = smem + L::DO_OFF;
+    const float* slse0 = reinterpret_cast<const float*>(smem + L::LSE_OFF);
+    const float* sdi0 = reinterpret_cast<const float*>(smem + L::DI_OFF);
     sm90::mbar_wait(kv_full, 0);
-    for (int qt = q_begin; qt < num_q; ++qt) {
-      const int i = qt - q_begin, s = i % TC_STAGES, q0 = qt * TC_BQ;
-      const uint8_t* sq = smem + L::Q_OFF + s * QT::BYTES;
-      const uint8_t* sdo = smem + L::DO_OFF + s * QT::BYTES;
-      const float* slse = reinterpret_cast<const float*>(smem + L::LSE_OFF) + s * TC_BQ;
-      const float* sdi = reinterpret_cast<const float*>(smem + L::DI_OFF) + s * TC_BQ;
-      sm90::mbar_wait(&full[s], (i / TC_STAGES) & 1);
+    if (first && l == 0) sm90::mbar_arrive(&empty[0]);  // tile 0, unread
+    __syncwarp();   // converged for the aligned barrier instructions
+    if (cw == 1) sm90::bar_arrive(TC_TURN + 0, 256);    // warpgroup 0 first
 
-      // S^T = K Q^T and dP^T = V dO^T, both SS, one group
-      const uint64_t kd = sm90::opaque(k_desc), vd = sm90::opaque(v_desc);
-      const uint64_t qd = sm90::opaque(QT::kmajor(sq));
-      const uint64_t dod = sm90::opaque(QT::kmajor(sdo));
-      float st[TC_BQ / 2], dpt[TC_BQ / 2];
-#pragma unroll
-      for (int j = 0; j < TC_BQ / 2; ++j) st[j] = dpt[j] = 0.f;
+    for (int p = 0; p <= m; ++p) {
+      const int i = first + p;   // the tile whose scores this turn makes
+      const int s = i % TC_STAGES, sp = (i + TC_STAGES - 1) % TC_STAGES;
+      sm90::bar_sync(TC_TURN + cw, 256);
+      if (p < m) sm90::mbar_wait(&full[s], (i / TC_STAGES) & 1);
       sm90::wgmma_fence();
+      if (p > 0) {
+        // dV += P^T dO and dK += dS^T Q of the tile before (RS, dO and Q
+        // read MN-major); once done, its stage goes back
+        const uint64_t dom = sm90::opaque(QT::mnmajor(sdo0 + sp * QT::BYTES));
+        const uint64_t qm = sm90::opaque(QT::mnmajor(sq0 + sp * QT::BYTES));
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<TC_BQ>::ss(st, KT::kmajor_at(kd, 64 * wg, kk),
-                               QT::kmajor_at(qd, 0, kk), 1);
+        for (int kk = 0; kk < TC_BQ / 16; ++kk)
+          sm90::Wgmma<D>::rs(adv, pa[kk], QT::mnmajor_at(dom, kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<TC_BQ>::ss(dpt, KT::kmajor_at(vd, 64 * wg, kk),
-                               QT::kmajor_at(dod, 0, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(st);
-      sm90::fence_regs(dpt);
-
-      // P^T = exp(S^T scale - lse[col]) and dS^T = P^T (dP^T - D[col])
-      // scale, dS from the f32 P as in the JAX kernel; both 0 outside the
-      // valid region, which only tiles on the diagonal or at `seq` need.
-      // Each pair goes to a bf16 A fragment as soon as it is made, so the
-      // f32 tiles die element by element.
-      const bool edge = (causal && q0 < k0 + TC_BK) || q0 + TC_BQ > seq ||
-                        k0 + TC_BK > seq;
-      uint32_t pa[TC_BQ / 16][4], da[TC_BQ / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < TC_BQ / 16; ++kk)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float p2[2], ds2[2];
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int i = 8 * kk + 2 * c + x;   // accumulator index 4j + e
-            const int e = i % 4;
-            const int qc = 8 * (i / 4) + 2 * (l % 4) + (e & 1);
-            const int key = kr + 8 * (e >> 1), row = q0 + qc;
-            const bool ok = !edge || (row < seq && key < seq && (!causal || key <= row));
-            p2[x] = ok ? exp2f(st[i] * scale_log2 - slse[qc]) : 0.f;
-            ds2[x] = ok ? p2[x] * (dpt[i] - sdi[qc]) * scale : 0.f;
-          }
-          pa[kk][c] = sm90::pack_bf16(p2[0], p2[1]);
-          da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
-        }
-
-      // dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major)
-      const uint64_t dom = sm90::opaque(QT::mnmajor(sdo));
-      const uint64_t qm = sm90::opaque(QT::mnmajor(sq));
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < TC_BQ / 16; ++kk)
-        sm90::Wgmma<D>::rs(adv, pa[kk], QT::mnmajor_at(dom, kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < TC_BQ / 16; ++kk)
-        sm90::Wgmma<D>::rs(adk, da[kk], QT::mnmajor_at(qm, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(adv);
-      sm90::fence_regs(adk);
-      sm90::fence_regs(pa);
-      sm90::fence_regs(da);
-      if (l == 0) sm90::mbar_arrive(&empty[s]);
+        for (int kk = 0; kk < TC_BQ / 16; ++kk)
+          sm90::Wgmma<D>::rs(adk, da[kk], QT::mnmajor_at(qm, kk), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(adv);
+        sm90::fence_regs(adk);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(da);
+        if (l == 0) sm90::mbar_arrive(&empty[sp]);
+        __syncwarp();   // converged for the aligned instructions below
+        sm90::wgmma_fence();
+      }
+      if (p < m) {
+        // S^T and dP^T of tile i; the tensor cores go to the other
+        // warpgroup while P and dS are made from them
+        float st[TC_BQ / 2], dpt[TC_BQ / 2];
+        dkv_scores<D>(st, k_desc, cw, sq0 + s * QT::BYTES);
+        dkv_scores<D>(dpt, v_desc, cw, sdo0 + s * QT::BYTES);
+        if (p < handovers) sm90::bar_arrive(TC_TURN + 1 - cw, 256);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        const int q0 = (q_begin + i) * TC_BQ;
+        const float* slse = slse0 + s * TC_BQ;
+        const float* sdi = sdi0 + s * TC_BQ;
+        const bool edge = (causal && q0 < key_lo + 64) || q0 + TC_BQ > seq ||
+                          key_lo + 64 > seq;
+        if (edge)
+          dkv_p_ds<true>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq, causal,
+                         scale_log2, scale);
+        else
+          dkv_p_ds<false>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq, causal,
+                          scale_log2, scale);
+      } else if (p < handovers) {
+        sm90::bar_arrive(TC_TURN + 1 - cw, 256);
+      }
     }
 
 #pragma unroll

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels.
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count,
-//   and a parity wait.
+//   an expected count alone, and a parity wait.
 // - TMA: a 3-D tile load (`cp.async.bulk.tensor`) that completes on an
 //   mbarrier, and the host-side tensor map for a contiguous
 //   (hb, seq, d) bf16 tensor. The map is made by the driver's
 //   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so the
 //   libraries stay plain C with no -lcuda.
+// - Named barriers: `bar.sync` / `bar.arrive` over a subset of the block,
+//   by which two consumer warpgroups take turns on the tensor cores.
 // - wgmma: the shared-memory matrix descriptor, fence / commit / wait, and
 //   the m64nNk16 bf16 -> f32 products in two forms: SS (A and B K-major in
 //   shared memory) and RS (A in registers, B MN-major in shared memory).
@@ -67,6 +69,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// Adds `bytes` to the phase's expected transaction count without arriving,
+// so the thread can arrive later, after stores of its own.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
 // Returns once the barrier's phase of this parity has completed. A fresh
 // barrier is in phase 0: waiting on parity 1 returns at once, on parity 0
 // only after the first phase completes. A wait that outlasts 2^30 polls
@@ -100,6 +109,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// --- named barriers ------------------------------------------------------
+
+// Barrier `id` (1 to 15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32: `bar_sync` waits until that many have arrived, this
+// warp included; `bar_arrive` counts this warp and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
 
 // --- registers -----------------------------------------------------------
