@@ -16,9 +16,11 @@ failure:
    plain version, and the one PyTorch call computing the same function
    (`library_ms`, a yardstick the port never calls), and K2 also at the
    other training cells' attention shapes (K2_CELL_SHAPES), timed beside
-   its bound and its first heads held against its plain version; the same
-   for the
-   training head's NLL kernel pair (xent_fwd, xent_bwd) at switch-base-8's
+   its bound and its first heads held against its plain version; K1, K2
+   and K3 at latent attention's head dims (q and k 192, v 128) at small
+   ragged shapes against their plain versions and timed at
+   Moonlight-16B-A3B's attention (LATENT_SHAPE) beside their bounds and
+   SDPA's forward and backward; the same for the training head's NLL kernel pair (xent_fwd, xent_bwd) at switch-base-8's
    and pythia-1.4b's head shapes and a ragged vocab, timed at Switch's
    beside its bound by bytes, its plain version and `F.cross_entropy` on
    the f32 logits; and LFM2's gated short convolution (conv_fwd,
@@ -58,7 +60,12 @@ failure:
    `conv.fused_rows` each; K1-K3 once an attention layer; the head's pair
    once; a forward conv_fwd and K1 alone); then one step's loss and
    gradients against the same step with `short_conv.gated_conv_plain` in
-   the kernels' place;
+   the kernels' place. Then DeepSeek-V3's block at Moonlight-16B-A3B's
+   widths and 2 x 8192 tokens under remat, cut to 3 layers, the same way
+   (K1 twice an MLA layer a step, K2 and K3 once, b s heads
+   `mla.flash_rows` a layer; a forward K1 alone), and one step's loss and
+   gradients against the same step with K1-K3's plain versions in their
+   place, on the kernel step's routes;
 8. GPipe at the mfu preset: pp 2 as two threads of this process on the
    one card (`pipeline.ThreadLink`, each stage on its own stream; NCCL
    refuses two ranks on one card), 4 microbatches: one step's loss and
@@ -130,6 +137,13 @@ LSE_TOL = 1e-3
 # are compared (the plain version of all of LFM2's would need some 70 GB).
 K2_CELL_SHAPES = {"lfm2-8b-a1b.train": (64, 8192, 64, 2),
                   "switch-base-8.train": (1536, 512, 64, 16)}
+# K1-K3 at latent attention's head dims: (hb, seq, q/k head dim, v head
+# dim) of Moonlight-16B-A3B's training cell, 2 x 16 heads over 8192
+# (timed, and its first LATENT_HEADS heads held against the plain
+# versions, as K2_CELL_SHAPES), and the ragged shapes held against them
+LATENT_SHAPE = (32, 8192, 192, 128)
+LATENT_HEADS = 2
+LATENT_CHECKS = [(2, 1), (2, 96), (3, 200), (2, 1000)]
 # The head's NLL kernels vs their plain version, from the same bf16
 # logits in f32: each row's lse and NLL within NLL_ATOL (exp is
 # ex2.approx, ~2^-22 relative; the row's sums run in another order), the
@@ -206,6 +220,25 @@ HYBRID = dict(vocab=65536, d_model=2048, n_heads=32, n_kv_heads=8,
               expert_d_ff=1792, experts_per_token=4, rope_theta=1e6,
               norm_eps=1e-5, seq_len=8192, batch=2)
 HYBRID_STEPS = 3
+# Phase 7 too: DeepSeek-V3's block at Moonlight-16B-A3B's widths (d 2048,
+# 16 heads of q/k 128 + 64 RoPE dims over v 128, a latent of 512, SwiGLU
+# 11264, top-6 of 64 experts of 1408 with 8 held beside shared experts of
+# 2816, vocab 163840 untied) and its cell's 2 x 8192 tokens under remat,
+# cut to 3 layers (1 dense, 2 MoE). Its step through K1-K3 against the
+# same step with their plain versions in their place (PLAIN_HEADS heads
+# at a time, so that the f32 scores fit), on the kernel step's routes:
+# only attention's summation order and bf16 roundings differ, as in the
+# dense step, whose bars hold (STEP_GRAD_REL_TOL, STEP_LOSS_TOL).
+LATENT_BLOCK = dict(vocab=163840, d_model=2048, n_heads=16, d_ff=11264,
+                    n_layers=3, layer_types=("mla",) * 3, n_dense_layers=1,
+                    n_experts=64, experts_held=8, expert_d_ff=1408,
+                    experts_per_token=6, rope_theta=50000.0, norm_eps=1e-5,
+                    kv_lora_rank=512, qk_nope_head_dim=128,
+                    qk_rope_head_dim=64, v_head_dim=128, shared_d_ff=2816,
+                    routed_scale=2.446, router_eps=1e-20, untied_head=True,
+                    remat=True, seq_len=8192, batch=2)
+LATENT_BLOCK_STEPS = 2
+PLAIN_HEADS = 4
 # GPipe at mfu on one card: 2 stages as threads, 4 microbatches of 2 rows.
 # The same model and bars as the dense step (STEP_LOSS_TOL,
 # STEP_GRAD_REL_TOL): only the microbatches' bf16 roundings and the order
@@ -300,6 +333,146 @@ def bwd_bounds(hb: int, seq: int, d: int, dtype: str, causal: bool,
         nbytes = tile * (reads * itemsize + writes * out_itemsize) + rows
         out[name] = (*_bound(flops, nbytes, dtype), flops)
     return out
+
+
+def latent_bounds(hb: int, seq: int, d: int, dv: int, causal: bool = True):
+    """Least time (ms) for K1, K2 and K3 at query/key head dim d and value
+    head dim dv (bf16), what bounds each, and their FLOPs: each product at
+    its own dim, 2 FLOPs per multiply-add (K1: QK^T, PV; K2: S^T, dP^T,
+    dV, dK; K3: S, dP, dQ). Bytes: q, k (d) and v, dO (dv) read once as
+    each kernel reads them, lse and D rows, o, dk, dv or dq written
+    once."""
+    pairs = hb * _pairs(seq, causal)
+    q, v, rows = 2 * hb * seq * d, 2 * hb * seq * dv, 4 * hb * seq
+    work = {"flash_fwd": (2 * pairs * (d + dv), 2 * q + 2 * v + rows),
+            "flash_bwd_dkv": (4 * pairs * (d + dv),
+                              3 * q + 3 * v + 2 * rows),
+            "flash_bwd_dq": (2 * pairs * (2 * d + dv),
+                             3 * q + 2 * v + 2 * rows)}
+    return {name: (*_bound(flops, nbytes, "bfloat16"), flops)
+            for name, (flops, nbytes) in work.items()}
+
+
+def _latent_errs(fa, q, k, v, do, o, lse, di, dq, dk, dv, scale,
+                 causal) -> dict:
+    """{kernel: `_elem_err`} of K1's o, K2's dk and dv (the larger) and
+    K3's dq against the plain versions with their rounding terms, and
+    K1's lse error (`lse_err`)."""
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, True)
+    args = (q, k, v, do, lse, di, scale, causal)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args)
+    term_dk, term_dv = fa.rounding_terms_dkv(*args)
+    err_dk = _elem_err(dk, ref_dk, "bfloat16", term_dk)
+    err_dv = _elem_err(dv, ref_dv, "bfloat16", term_dv)
+    del ref_dk, ref_dv, term_dk, term_dv
+    return {"flash_fwd": _elem_err(o, ref_o, "bfloat16",
+                                   fa.rounding_terms_fwd(q, k, v, ref_lse,
+                                                         scale, causal)),
+            "flash_bwd_dkv": {key: max(err_dk[key], err_dv[key])
+                              for key in err_dk},
+            "flash_bwd_dq": _elem_err(
+                dq, fa.flash_bwd_dq_plain(*args), "bfloat16",
+                fa.rounding_terms_dq(*args)),
+            "lse_err": (lse - ref_lse).abs().max().item()}
+
+
+def check_flash_latent(torch, fa, dev) -> list:
+    """Phase 3 for K1, K2 and K3 at latent attention's head dims: each
+    LATENT_CHECKS shape (causal and not) against the plain versions, then
+    each kernel timed at LATENT_SHAPE beside its bound, and SDPA's forward
+    and backward (dq, dk, dv together) on the same (b, heads) tensors, and
+    its first LATENT_HEADS heads held against the plain versions.
+    Returns the timed lines, K1's, K2's, K3's."""
+    import torch.nn.functional as F
+    gen = torch.Generator(dev).manual_seed(3)
+    _, _, d, dv = LATENT_SHAPE
+    scale = d ** -0.5
+
+    def make(hb, seq):
+        q, k = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v, do = (torch.randn((hb, seq, dv), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        return q, k, v, do
+
+    for (hb, seq), causal in [(sh, c) for sh in LATENT_CHECKS
+                              for c in (True, False)]:
+        q, k, v, do = make(hb, seq)
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+        di = (do.float() * o.float()).sum(-1)
+        dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+        fa.launch_bwd(q, k, v, do, lse, di, dq, dk, dvv, scale, causal)
+        torch.cuda.synchronize()
+        errs = _latent_errs(fa, q, k, v, do, o, lse, di, dq, dk, dvv, scale,
+                            causal)
+        lse_err = errs.pop("lse_err")
+        for name, err in errs.items():
+            ok = err["tol_ratio"] <= 1.0 and (name != "flash_fwd"
+                                              or lse_err <= LSE_TOL)
+            line = dict(kernel=name, hb=hb, seq=seq, d=d, dv=dv,
+                        dtype="bfloat16", causal=causal, **err, ok=ok)
+            print(json.dumps(line), flush=True)
+            if not ok:
+                raise AssertionError(f"{name} at ({d}, {dv}) disagrees with "
+                                     f"its plain version: {line}")
+    hb, seq = LATENT_SHAPE[:2]
+    q, k, v, do = make(hb, seq)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, True, True)
+    di = (do.float() * o.float()).sum(-1)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    ms = {"flash_fwd": _cuda_ms(torch, lambda: fa.flash_attention_fwd(
+              q, k, v, scale, True, True), 10),
+          "flash_bwd_dkv": _cuda_ms(torch, lambda: fa.launch_bwd(
+              q, k, v, do, lse, di, None, dk, dvv, scale, True), 10),
+          "flash_bwd_dq": _cuda_ms(torch, lambda: fa.launch_bwd(
+              q, k, v, do, lse, di, dq, None, None, scale, True), 10)}
+    b = 2
+    q4, k4, v4 = (t.view(b, hb // b, seq, -1).detach().requires_grad_()
+                  for t in (q, k, v))
+    library = {}
+    try:
+        library["forward"] = _cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 10)
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        do4 = do.view(b, hb // b, seq, dv)
+        library["backward"] = _cuda_ms(torch, lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True), 10)
+        del out4
+    except RuntimeError as exc:          # no SDPA kernel takes the pair
+        library["error"] = str(exc)[:200]
+    del q4, k4, v4
+    torch.cuda.empty_cache()
+    # the first heads of the timed outputs: each head's are its own
+    heads = LATENT_HEADS
+    errs = _latent_errs(fa, *(t[:heads] for t in (q, k, v, do, o, lse, di,
+                                                   dq, dk, dvv)), scale, True)
+    lse_err = errs.pop("lse_err")
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dvv))
+    timed = []
+    for name, (bound_ms, bound_by, flops) in latent_bounds(
+            hb, seq, d, dv).items():
+        fwd = name == "flash_fwd"
+        ok = finite and errs[name]["tol_ratio"] <= 1.0 and (
+            not fwd or lse_err <= LSE_TOL)
+        line = dict(kernel=name, hb=hb, seq=seq, d=d, dv=dv,
+                    dtype="bfloat16", causal=True, ms=ms[name],
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    **_speed(ms[name], bound_ms, flops),
+                    library_ms=library.get("forward" if fwd else "backward"),
+                    library_is=("SDPA forward" if fwd else
+                                "SDPA backward: dq, dk and dv together"),
+                    library_error=library.get("error"),
+                    checked_heads=heads, **errs[name],
+                    **(dict(lse_err=lse_err) if fwd else {}), ok=ok)
+        print(json.dumps(line), flush=True)
+        timed.append(line)
+        if not ok:
+            raise AssertionError(f"{name} at ({d}, {dv}) disagrees with its "
+                                 f"plain version at {LATENT_SHAPE}: {line}")
+    del q, k, v, do, o, lse, di, dq, dk, dvv
+    torch.cuda.empty_cache()
+    return timed
 
 
 def _speed(ms: float, bound_ms: float, flops: float) -> dict:
@@ -1100,6 +1273,146 @@ def check_hybrid(torch, fa, dev) -> dict:
     return launches
 
 
+class _TopkRouter:
+    """Stands in for `workload._route_topk`: records the experts each MoE
+    layer chooses in the forward, by its router leaf (so that the layer's
+    recomputation inside the backward finds them too); with `pinned`,
+    another router's record, routes to those experts, weighted from its
+    own scores as `_route_topk` weights its choice, and counts the rows
+    whose own choice is the pinned one."""
+
+    def __init__(self, torch, workload, pinned=None):
+        self.torch, self.workload, self.pinned = torch, workload, pinned
+        self.original = workload._route_topk
+        self.chosen, self.rows, self.agreeing = {}, 0, 0
+
+    def __call__(self, xt, wr, bias, cfg):
+        weights, chosen = self.original(xt, wr, bias, cfg)
+        if self.pinned is None:
+            self.chosen.setdefault(wr.data_ptr(), chosen)
+            return weights, chosen
+        given = self.pinned[wr.data_ptr()]
+        if self.torch._C._current_graph_task_id() == -1:   # the forward
+            same = (chosen.sort(-1).values == given.sort(-1).values).all(-1)
+            self.rows += same.numel()
+            self.agreeing += int(same.sum())
+        scores = self.torch.sigmoid(xt.float()
+                                    @ self.workload._bf16(wr).float())
+        weights = scores.gather(1, given)
+        weights = weights / (weights.sum(-1, keepdim=True) + cfg.router_eps)
+        if cfg.routed_scale != 1:
+            weights = weights * cfg.routed_scale
+        return weights, given
+
+
+def _by_heads(torch, fn, n: int):
+    """`fn`, a plain version over (heads_batch, seq, ...) tensors, run `n`
+    heads at a time and its outputs joined: each head's are its own."""
+    def run(*args, **kwargs):
+        hb = args[0].shape[0]
+        parts = [fn(*(a[i:i + n] if isinstance(a, torch.Tensor) else a
+                      for a in args), **kwargs) for i in range(0, hb, n)]
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts)
+        return tuple(torch.cat(out) for out in zip(*parts))
+    return run
+
+
+def check_latent_block(torch, fa, dev) -> dict:
+    """Phase 7 for DeepSeek-V3's block (LATENT_BLOCK) through
+    `workload.sgd_step` and `workload.forward`, each with the launch counts
+    set to 0 just before it: under remat a step launches K1 twice an MLA
+    layer (its forward and the recomputation in the backward), K2 and K3
+    once and the head's pair once, and counts b s heads `mla.flash_rows`
+    an MLA layer (not in the recomputation); a forward launches K1 once a
+    layer alone, with the same rows. Then one step's loss and gradients
+    against the same step with the plain versions of K1-K3 in their place,
+    on the kernel step's routes (`_TopkRouter`). Returns {path: K1-K3
+    launches}."""
+    from tpu_device_plugin_torch.validator import tracing, workload, xent
+    cfg = workload.ModelConfig(**LATENT_BLOCK)
+    n, layers = LATENT_BLOCK_STEPS, cfg.n_layers
+    rows = cfg.batch * cfg.seq_len * cfg.n_heads
+    step, params, momentum, tokens = workload.build_workload(
+        cfg, seed=0, attention="flash", device=dev)
+    _reset(fa)
+    with tracing.recording() as rec:
+        losses = [step(params, momentum, tokens)[2].item() for _ in range(n)]
+    launches = {"latent_train": dict(fa.launches)}
+    line = dict(check="DeepSeek-V3 latent block through sgd_step, counted",
+                steps=n, losses=losses, flash=dict(fa.launches),
+                head=dict(xent.launches),
+                mla_flash_rows=rec.counts.get("mla.flash_rows"),
+                held_share=rec.counts.get("moe.held", 0)
+                / max(rec.counts.get("moe.routed", 0), 1),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(line), flush=True)
+    if (fa.launches != {"flash_fwd": 2 * layers * n,
+                        "flash_bwd_dkv": layers * n,
+                        "flash_bwd_dq": layers * n}
+            or xent.launches != dict.fromkeys(xent.launches, n)
+            or line["mla_flash_rows"] != layers * n * rows
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"the latent block's steps went another way: "
+                             f"{line}")
+
+    _reset(fa)
+    with torch.no_grad(), tracing.recording() as rec:
+        logits = workload.forward(params, tokens, cfg, "flash")
+        finite = bool(torch.isfinite(logits).all())
+    del logits
+    launches["latent_infer"] = dict(fa.launches)
+    if (not finite or fa.launches != {"flash_fwd": layers, "flash_bwd_dkv": 0,
+                                      "flash_bwd_dq": 0}
+            or rec.counts.get("mla.flash_rows") != layers * rows):
+        raise AssertionError(f"the latent forward launched {fa.launches} "
+                             f"with {rec.counts.get('mla.flash_rows')} rows; "
+                             f"finite {finite}")
+    torch.cuda.empty_cache()
+
+    _reset(fa)
+    kernel_routes = _TopkRouter(torch, workload)
+    with mock.patch.object(workload, "_route_topk", kernel_routes):
+        loss, grads = workload.value_and_grad(params, tokens, cfg, "flash")
+    expected = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers,
+                "flash_bwd_dq": layers}
+    if fa.launches != expected:
+        raise AssertionError(f"kernel step launched {fa.launches}, expected "
+                             f"{expected}")
+    plain_routes = _TopkRouter(torch, workload, kernel_routes.chosen)
+    with mock.patch.object(fa, "flash_attention_fwd", _by_heads(
+            torch, fa.flash_attention_plain, PLAIN_HEADS)), \
+            mock.patch.object(fa, "flash_attention_bwd", _by_heads(
+                torch, fa.flash_attention_bwd_plain, PLAIN_HEADS)), \
+            mock.patch.object(workload, "_route_topk", plain_routes):
+        ref_loss, ref = workload.value_and_grad(params, tokens, cfg, "flash")
+    if fa.launches != expected:
+        raise AssertionError(f"plain step launched a kernel: {fa.launches}")
+    rel = {}
+    for (key, g), r in zip(workload._named_leaves(grads),
+                           workload._leaves(ref)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient for {key}")
+        # moe_bias gets no gradient: 0 on both sides
+        rel[key] = ((g - r).abs().max()
+                    / r.abs().max().clamp(min=1e-30)).item()
+    del grads, ref, params, momentum
+    torch.cuda.empty_cache()
+    line = dict(check="DeepSeek-V3 latent training step: K1-K3 vs plain "
+                "versions, plain on the kernel step's routes",
+                loss=loss.item(), plain_loss=ref_loss.item(),
+                loss_diff=abs(loss.item() - ref_loss.item()),
+                max_grad_rel=max(rel.values()), grad_rel=rel,
+                route_agreement=plain_routes.agreeing / plain_routes.rows,
+                grad_rel_tol=STEP_GRAD_REL_TOL, loss_tol=STEP_LOSS_TOL)
+    print(json.dumps(line), flush=True)
+    if (line["max_grad_rel"] > STEP_GRAD_REL_TOL
+            or line["loss_diff"] > STEP_LOSS_TOL):
+        raise AssertionError("the latent step through K1-K3 disagrees with "
+                             "their plain versions")
+    return launches
+
+
 def compare_steps(torch, fa, cfg, dev) -> dict:
     """One training step's loss and gradients through the kernels and
     through their plain versions, on the same weights and tokens."""
@@ -1619,6 +1932,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     entries = [check_flash_fwd(torch, fa, dev), *check_flash_bwd(torch, fa, dev)]
     torch.cuda.empty_cache()
+    for entry, line in zip(entries, check_flash_latent(torch, fa, dev)):
+        entry["at_latent"] = line
     xent_entry = check_xent(torch, dev)
     torch.cuda.empty_cache()
     conv_entry = check_conv(torch, dev)
@@ -1730,11 +2045,16 @@ def main() -> int:
             entry["launches_by_path"][path] = counts[kernel]
         entry["ring_modes"] = modes[kernel]
 
-    # 7. LFM2's hybrid block, through the conv kernels
+    # 7. LFM2's hybrid block, through the conv kernels; DeepSeek-V3's
+    # block, through K1-K3 at latent attention's head dims
     _memory(torch, "7")
     conv_entry["launches_by_path"] = check_hybrid(torch, fa, dev)
     conv_entry["launches"] = sum(sum(counts.values()) for counts in
                                  conv_entry["launches_by_path"].values())
+    torch.cuda.empty_cache()
+    for path, counts in check_latent_block(torch, fa, dev).items():
+        for entry in entries:
+            entry["launches_by_path"][path] = counts[entry["name"]]
     torch.cuda.empty_cache()
 
     # 8. GPipe at the mfu width, two stage threads on the card

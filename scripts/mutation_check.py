@@ -41,13 +41,13 @@ MUTATIONS = [
      "check_flash_fwd"),
     ("K2 skips the diagonal query tile of the last key tile",
      f"{CSRC}/flash_bwd.cu",
-     "  const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal",
-     "  const int q_begin = causal ? k0 / TC_BQ + (blockIdx.x == gridDim.x - 1) : 0;",
+     "  const int q_begin = causal ? k0 / BQ : 0;      // the diagonal",
+     "  const int q_begin = causal ? k0 / BQ + (blockIdx.x == gridDim.x - 1) : 0;",
      "check_flash_bwd"),
     ("K3 skips the diagonal key tile (query tiles after the first)",
      f"{CSRC}/flash_bwd.cu",
-     "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK;",
-     "  const int num_k = (k_end + DQ_BK - 1) / DQ_BK - (causal && q0 > 0);",
+     "  const int num_k = (k_end + BK - 1) / BK;",
+     "  const int num_k = (k_end + BK - 1) / BK - (causal && q0 > 0);",
      "check_flash_bwd"),
     ("the ring treats past blocks as causal",
      "tpu_device_plugin_torch/validator/ring_attention.py",
@@ -70,8 +70,8 @@ VARIANTS = [
      "check_flash_bwd"),
     ("K2 with a two-stage Q / dO / lse / D ring",
      f"{CSRC}/flash_bwd.cu",
-     "constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth",
-     "constexpr int TC_STAGES = 2;            // Q / dO / lse / D ring depth",
+     "constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth at TC_BQ",
+     "constexpr int TC_STAGES = 2;            // Q / dO / lse / D ring depth at TC_BQ",
      "check_flash_bwd"),
 ]
 

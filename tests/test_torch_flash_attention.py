@@ -104,6 +104,8 @@ def test_other_devices_are_refused():
     ("mixed", "float32 or bfloat16"),
     ("strided", "contiguous"),
     ("head_dim", "no head_dim 48"),
+    ("pair", r"no head_dim pair \(32, 16\)"),
+    ("f32_pair", r"no head_dim pair \(192, 128\) in torch.float32"),
 ])
 def test_kernel_input_checks(case, match):
     """What the wrapper refuses before any pointer reaches the kernel."""
@@ -121,6 +123,11 @@ def test_kernel_input_checks(case, match):
         q = torch.zeros((2, 32, 64)).transpose(1, 2)
     elif case == "head_dim":
         q = k = v = torch.zeros((2, 64, 48))
+    elif case == "pair":
+        v = torch.zeros((2, 64, 16))
+    elif case == "f32_pair":
+        q = k = torch.zeros((2, 64, 192))
+        v = torch.zeros((2, 64, 128))
     with pytest.raises(ValueError, match=match):
         tfa._check_kernel_inputs(q, k, v)
 
@@ -157,13 +164,23 @@ def test_rounding_plain_forward_matches_jax_kernel(d, causal, seq, block):
     assert np.max(np.abs(as_np(out) - as_np(kernel))) < 1e-2
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_forward_in_f32_is_unrounded(causal):
+# (query/key head dim, value head dim): the tiny tests' 32, latent
+# attention's (192, 128) and a tiny (24 + 8, 16); the first keeps the ids
+# it had
+HEAD_DIMS = [((32, 32), ""), ((192, 128), "192x128-"), ((32, 16), "32x16-")]
+
+
+@pytest.mark.parametrize("dims,causal", [
+    (dims, causal) for dims, _ in HEAD_DIMS for causal in (True, False)],
+    ids=[f"{tag}{causal}" for _, tag in HEAD_DIMS for causal in (True, False)])
+def test_plain_forward_in_f32_is_unrounded(dims, causal):
     """f32 inputs take exp(s - lse) V as before, bit for bit; bf16 inputs
     go through the rounding recurrence, which in f32 arithmetic differs
-    from it only by rounding."""
-    q, k, v = to_torch(inputs(2, 200, 32, seed=4), "float32")
-    scale = 32 ** -0.5
+    from it only by rounding. V may have a head dim of its own."""
+    d, dv = dims
+    q, k, _ = to_torch(inputs(2, 200, d, seed=4), "float32")
+    v = to_torch(inputs(2, 200, dv, seed=5), "float32")[0]
+    scale = d ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q, k) * scale
     if causal:
         s = torch.where(torch.ones(200, 200, dtype=torch.bool).tril(), s,

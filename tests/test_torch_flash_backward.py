@@ -181,12 +181,24 @@ def test_rounding_plain_backward_matches_jax_kernels(d, causal, seq, block):
             assert np.max(np.abs(as_np(g) - as_np(r))) < tol, (name, out_dtype)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_in_f32_is_unrounded(causal):
+# (query/key head dim, value head dim): the tiny tests' 32, latent
+# attention's (192, 128) and a tiny (24 + 8, 16); the first keeps the ids
+# it had
+HEAD_DIMS = [((32, 32), ""), ((192, 128), "192x128-"), ((32, 16), "32x16-")]
+
+
+@pytest.mark.parametrize("dims,causal", [
+    (dims, causal) for dims, _ in HEAD_DIMS for causal in (True, False)],
+    ids=[f"{tag}{causal}" for _, tag in HEAD_DIMS for causal in (True, False)])
+def test_plain_backward_in_f32_is_unrounded(dims, causal):
     """In f32 the rounding is the identity: K2's and K3's plain versions
-    equal the products of the unrounded P and dS bit for bit."""
-    q, k, v, do = (to_torch(a, "float32") for a in arrays(2, 96, 32, 8))
-    scale = 32 ** -0.5
+    equal the products of the unrounded P and dS bit for bit, and their
+    gradients are autograd's through einsum attention. V (and dO, dV) may
+    have a head dim of its own."""
+    d, dv = dims
+    q, k = (to_torch(a, "float32") for a in arrays(2, 96, d, 8, n=2))
+    v, do = (to_torch(a, "float32") for a in arrays(2, 96, dv, 9, n=2))
+    scale = d ** -0.5
     o, lse = tfa.flash_attention_plain(q, k, v, scale, causal, True)
     di = tfa._row_dot(do, o)
     p, ds = tfa._p_ds(q, k, v, do, lse, di, scale, causal)
@@ -196,6 +208,13 @@ def test_plain_backward_in_f32_is_unrounded(causal):
     assert torch.equal(tfa.flash_bwd_dq_plain(q, k, v, do, lse, di, scale,
                                               causal),
                        torch.einsum("bqk,bkd->bqd", ds, k))
+    assert dk.shape == q.shape and dv.shape == v.shape
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        (tfa._reference_attention(*leaves, scale, causal) * do).sum(), leaves)
+    got = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    for g, r in zip(got, ref):
+        assert torch.allclose(g, r, rtol=1e-4, atol=1e-5)
     # bf16: P and dS rounded for K2, the same rounded dS for K3
     qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
     pb, dsb = tfa._p_ds(qb, kb, vb, dob, lse, di, scale, causal)

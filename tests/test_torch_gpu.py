@@ -606,6 +606,70 @@ def test_hybrid_block_on_card_matches_the_reference(cuda_device):
         > tiny.GRAD_TOL
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [1, 96, 200, 1000])
+def test_latent_attention_kernels_match_plain(cuda_device, seq, causal,
+                                              out_dtype):
+    """K1, K2 and K3 at latent attention's head dims (q and k 192, v 128)
+    against their plain versions, within the bars of the equal-dim
+    instances."""
+    q, k = inputs(3, seq, 192, "bfloat16", cuda_device, seed=seq, n=2)
+    v, do = inputs(3, seq, 128, "bfloat16", cuda_device, seed=seq + 1, n=2)
+    scale = 192 ** -0.5
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+    assert o.shape == v.shape
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, True)
+    assert grad_close(o, ref_o, "bfloat16",
+                      fa.rounding_terms_fwd(q, k, v, ref_lse, scale, causal))
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, scale, causal,
+                                   out_dtype=getattr(torch, out_dtype))
+    torch.cuda.synchronize()
+    assert fa.launches == {name: n + 1 for name, n in before.items()}
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal,
+                                        out_dtype=torch.float32)
+    di = (do.float() * o.float()).sum(-1)
+    terms = (fa.rounding_terms_dq(q, k, v, do, lse, di, scale, causal),
+             *fa.rounding_terms_dkv(q, k, v, do, lse, di, scale, causal))
+    for name, g, ref, term, like in zip(("dq", "dk", "dv"), grads, refs,
+                                        terms, (q, k, v)):
+        assert g.shape == like.shape, name
+        assert torch.isfinite(g).all(), name
+        assert grad_close(g, ref, out_dtype, term), name
+
+
+@pytest.mark.gpu
+def test_latent_attention_block_on_card_matches_the_reference(cuda_device):
+    """DeepSeek-V3's block at latent attention's head dims (192 / 128, so
+    that its attention runs K1-K3) and a small width, through
+    `sgd_step` on the card, against the definition's f32 reference there
+    (TF32 off), following the port's routes: the CPU test's bounds
+    (tests/torch_moonlight_tiny.py), which the fp8 control fails; K1-K3
+    once a layer, `mla.flash_rows` b s heads a layer."""
+    import torch_moonlight_tiny as tiny
+    model = dict(tiny.MODEL, d_model=256, n_heads=2, kv_lora_rank=64,
+                 qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+    params, tokens = tiny.inputs(2 ** 31 + 23, cuda_device, model)
+    before = dict(fa.launches)
+    with tracing.recording() as rec:
+        loss, grad, new, routes = tiny.port_step(workload, params, tokens,
+                                                 "flash", model)
+    layers = model["n_layers"]
+    assert fa.launches == {name: n + layers for name, n in before.items()}
+    assert rec.counts["mla.flash_rows"] == layers * tiny.BATCH * tiny.SEQ * 2
+    ref = tiny.reference_step(params, tokens, routes, model=model)
+    gaps = tiny.step_gaps((loss, grad, new), ref[:3], params)
+    assert gaps["loss"] <= tiny.LOSS_TOL, gaps
+    assert gaps["grad"] <= tiny.GRAD_TOL, gaps
+    assert gaps["update"] <= tiny.GRAD_TOL, gaps
+    control = tiny.reference_step(params, tokens, routes, "fp8", model)
+    assert tiny.step_gaps(control[:3], ref[:3], params)["grad"] \
+        > tiny.GRAD_TOL
+
+
 def _conv_inputs(b, s, d, taps, device, seed=0):
     gen = torch.Generator(device).manual_seed(seed)
     bch = torch.randn((b, s, 3 * d), generator=gen, device=device

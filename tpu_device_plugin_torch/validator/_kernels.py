@@ -108,8 +108,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # its `extern "C"` line declares them, the stream last)}; each returns 0 or
 # a CUDA error
 ENTRIES: Dict[str, Tuple[str, Tuple[type, ...]]] = {
-    "flash_fwd": ("flash_fwd", (_P,) * 5 + (_I,) * 5 + (_F, _P)),
-    "flash_bwd": ("flash_bwd", (_P,) * 9 + (_I,) * 6 + (_F, _P)),
+    "flash_fwd": ("flash_fwd", (_P,) * 5 + (_I,) * 6 + (_F, _P)),
+    "flash_bwd": ("flash_bwd", (_P,) * 9 + (_I,) * 7 + (_F, _P)),
     "xent_fwd": ("xent", (_P,) * 4 + (_I,) * 3 + (_L,) * 3 + (_P,)),
     "xent_bwd": ("xent", (_P,) * 5 + (_I,) * 4 + (_L,) * 3 + (_P,)),
     "conv_fwd": ("short_conv", (_P,) * 3 + (_I,) * 5 + (_P,)),

@@ -52,9 +52,9 @@
 //   gained nothing there; a third ring stage takes 8-16% off the time of
 //   two at the training cells' shapes, and loading the rows by TMA
 //   instead of the lanes at most 1.5%.
-// - Causal, warpgroup 1 skips the block's first query tile, which lies
-//   wholly above its keys; only tiles that cross the diagonal or `seq`
-//   are masked.
+// - Causal, warpgroup 1 skips the block's first 64 query rows (one tile,
+//   two at 32 rows), which lie wholly above its keys; only tiles that
+//   cross the diagonal or `seq` are masked.
 // - Each warpgroup adds its query tiles in order: dK and dV are
 //   deterministic, with no atomics.
 //
@@ -79,6 +79,30 @@
 // - Only tiles that cross the diagonal or `seq` are masked; warpgroup 0
 //   skips the products of a causal block's last key tile, which lies
 //   wholly above its rows.
+//
+// Latent attention (MLA) at head dims (192, 128): q, k, dq and dk have
+// the query/key head dim (192), v, dO and dv the value head dim (128); K2
+// and K3 take them as two template dims, and every other instance is the
+// same code at DQK = DV. S^T and dP^T (S and dP in K3) reduce over their
+// own dims (12 and 8 k-steps), dK and dQ are m64n192 accumulators (96
+// f32 registers a thread, against 64 at d 128), dV m64n128.
+// - K2 streams 32 query rows a tile (TC_BQ_WIDE) there: dK, dV, S^T and
+//   dP^T take 96 + 64 + 16 + 16 registers, as many as d 128's at 64 rows,
+//   and nothing spills. At 64 rows (224 of the 240 registers before any
+//   address) ptxas serialized the wgmmas for want of registers, and on an
+//   H100 K2 took 3.86 ms against 2.45 at Moonlight-16B-A3B's shape (hb
+//   32, seq 8192, causal).
+// - Causal, warpgroup 1 so skips two tiles, and starts two tiles ahead of
+//   warpgroup 0: K2 takes a four-stage ring there (DkvSmem::STAGES). With
+//   three, each of warpgroup 1's tiles was loaded only as its turn came,
+//   and K2 took 2.77 ms against 2.59-2.61 skipping one tile (a masked
+//   turn of zeros); with four, 2.53-2.59 (H100 at 700 W, median of five).
+// - K3 streams 32 key rows a tile (DQ_BK_WIDE) for the same reason: at 64
+//   ptxas serialized its wgmmas and spilled 268 bytes (4.93 ms against
+//   3.78); at 32 it keeps 4 bytes of spill stores outside the products.
+// - Shared memory: K2 resident K and V 48 + 32 KB, four stages of Q and
+//   dO 12 + 8 KB; K3 resident Q and dO 48 + 32 KB, two stages of K and V
+//   12 + 8 KB.
 //
 // K2 and K3 for f32 inputs: the first, scalar design, exact: f32 tiles in
 // shared memory, scalar f32 FMAs, 4 x 4 register tiles per thread. On the
@@ -406,23 +430,38 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int TC_BK = 128;              // key rows per block: 64 per consumer warpgroup
 constexpr int TC_BQ = 64;               // query rows per streamed tile
-constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth
+constexpr int TC_STAGES = 3;            // Q / dO / lse / D ring depth at TC_BQ
 constexpr int TC_THREADS = 384;         // consumer warpgroups 0 and 1, producer 2
 constexpr int TC_CONSUMER_WARPS = 8;
 constexpr int TC_TURN = 1;              // named barriers TC_TURN + wg: warpgroup wg's turn
+constexpr int TC_BQ_WIDE = 32;          // TC_BQ at query/key head dim 192
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D> struct DkvSmem {
-  using KT = sm90::Tile<TC_BK, D>;       // K and V, resident
-  using QT = sm90::Tile<TC_BQ, D>;       // Q and dO, streamed
+// Query rows per streamed tile of K2 at head dims (DQK, DV): TC_BQ, or
+// TC_BQ_WIDE at DQK 192, where dK's accumulator is 1.5 times d 128's
+// (the header says why).
+template <int DQK> constexpr int dkv_bq() { return DQK > 128 ? TC_BQ_WIDE : TC_BQ; }
+
+// DQK: the query/key head dim, DV: the value head dim (equal but in latent
+// attention)
+template <int DQK, int DV> struct DkvSmem {
+  static constexpr int BQ = dkv_bq<DQK>();
+  // Q / dO / lse / D ring depth: causal, warpgroup 1 starts 64 / BQ tiles
+  // after warpgroup 0, and each tile of that lead takes a stage, or the
+  // loads lose their slack (the header says what that cost)
+  static constexpr int STAGES = TC_STAGES + 64 / BQ - 1;
+  using KT = sm90::Tile<TC_BK, DQK>;     // K, resident
+  using VT = sm90::Tile<TC_BK, DV>;      // V, resident
+  using QT = sm90::Tile<BQ, DQK>;        // Q, streamed
+  using OT = sm90::Tile<BQ, DV>;         // dO, streamed
   static constexpr int V_OFF = KT::BYTES;
-  static constexpr int Q_OFF = 2 * KT::BYTES;
-  static constexpr int DO_OFF = Q_OFF + TC_STAGES * QT::BYTES;
-  static constexpr int LSE_OFF = DO_OFF + TC_STAGES * QT::BYTES;
-  static constexpr int DI_OFF = LSE_OFF + TC_STAGES * TC_BQ * 4;
-  static constexpr int BAR_OFF = DI_OFF + TC_STAGES * TC_BQ * 4;
-  // kv_full, full[TC_STAGES], empty[TC_STAGES]
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * TC_STAGES) + sm90::SMEM_ALIGN;
+  static constexpr int Q_OFF = KT::BYTES + VT::BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT::BYTES;
+  static constexpr int LSE_OFF = DO_OFF + STAGES * OT::BYTES;
+  static constexpr int DI_OFF = LSE_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
+  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + sm90::SMEM_ALIGN;
 };
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -439,17 +478,17 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // columns of lse and D per thread, read as it goes. With EDGE (tiles on
 // the diagonal or at `seq`) both are 0 outside the valid region; other
 // tiles need no test. slse holds lse in log2 units.
-template <bool EDGE>
-__device__ __forceinline__ void dkv_p_ds(uint32_t (&pa)[TC_BQ / 16][4],
-                                         uint32_t (&da)[TC_BQ / 16][4],
-                                         const float (&st)[TC_BQ / 2],
-                                         const float (&dpt)[TC_BQ / 2],
+template <bool EDGE, int BQ>
+__device__ __forceinline__ void dkv_p_ds(uint32_t (&pa)[BQ / 16][4],
+                                         uint32_t (&da)[BQ / 16][4],
+                                         const float (&st)[BQ / 2],
+                                         const float (&dpt)[BQ / 2],
                                          const float* slse, const float* sdi,
                                          int l, int kr, int q0, int seq,
                                          int causal, float scale_log2,
                                          float scale) {
 #pragma unroll
-  for (int kk = 0; kk < TC_BQ / 16; ++kk) {
+  for (int kk = 0; kk < BQ / 16; ++kk) {
     // accumulator index i = 8 kk + 2 c + x = 4 j + e: column 8 j + 2 (l % 4)
     // + x of row kr + 8 (c % 2), j = 2 kk + c / 2
     float2 lse[2], dcol[2];
@@ -485,22 +524,23 @@ __device__ __forceinline__ void dkv_p_ds(uint32_t (&pa)[TC_BQ / 16][4],
 }
 
 // acc = A B^T over D (SS, both K-major): A the warpgroup's 64 rows of the
-// resident K or V tile (`a`, its descriptor), B a streamed Q or dO tile
-template <int D>
-__device__ __forceinline__ void dkv_scores(float (&acc)[TC_BQ / 2], uint64_t a,
+// resident K or V tile (`a`, its descriptor), B a streamed Q or dO tile of
+// BQ rows
+template <int D, int BQ>
+__device__ __forceinline__ void dkv_scores(float (&acc)[BQ / 2], uint64_t a,
                                            int wg, const uint8_t* b_tile) {
   using KT = sm90::Tile<TC_BK, D>;
-  using QT = sm90::Tile<TC_BQ, D>;
+  using QT = sm90::Tile<BQ, D>;
   const uint64_t ad = sm90::opaque(a);
   const uint64_t bd = sm90::opaque(QT::kmajor(b_tile));
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    sm90::Wgmma<TC_BQ>::ss(acc, KT::kmajor_at(ad, 64 * wg, kk),
-                           QT::kmajor_at(bd, 0, kk), kk > 0);
+    sm90::Wgmma<BQ>::ss(acc, KT::kmajor_at(ad, 64 * wg, kk),
+                        QT::kmajor_at(bd, 0, kk), kk > 0);
   sm90::wgmma_commit();
 }
 
-template <typename O, int D>
+template <typename O, int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
@@ -510,25 +550,28 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                            const float* __restrict__ di, O* __restrict__ dk,
                            O* __restrict__ dv, int seq, int causal,
                            float scale) {
-  using L = DkvSmem<D>;
+  using L = DkvSmem<DQK, DV>;
   using KT = typename L::KT;
+  using VT = typename L::VT;
   using QT = typename L::QT;
+  using OT = typename L::OT;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::aligned_smem(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + TC_STAGES;
+  uint64_t* empty = full + STAGES;
 
   const int k0 = blockIdx.x * TC_BK;   // causal: tile 0 has the most work
   const int hb = blockIdx.y;
-  const int num_q = (seq + TC_BQ - 1) / TC_BQ;
-  const int q_begin = causal ? k0 / TC_BQ : 0;   // the diagonal
+  const int num_q = (seq + BQ - 1) / BQ;
+  const int q_begin = causal ? k0 / BQ : 0;      // the diagonal
   const int n = num_q - q_begin;                 // query tiles streamed
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 1);
-    for (int s = 0; s < TC_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       sm90::mbar_init(&full[s], 32);     // the producer warp's lanes
       sm90::mbar_init(&empty[s], TC_CONSUMER_WARPS);
     }
@@ -543,31 +586,31 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       const int lane = threadIdx.x % 32;
       const size_t rows = (size_t)hb * seq;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(kv_full, 2 * KT::BYTES);
-        for (int b = 0; b < KT::BOXES; ++b) {
+        sm90::mbar_arrive_expect_tx(kv_full, KT::BYTES + VT::BYTES);
+        for (int b = 0; b < KT::BOXES; ++b)
           sm90::tma_load_3d(smem + b * KT::BOX_BYTES, &mk, kv_full, b * KT::W, k0, hb);
-          sm90::tma_load_3d(smem + L::V_OFF + b * KT::BOX_BYTES, &mv, kv_full,
-                            b * KT::W, k0, hb);
-        }
+        for (int b = 0; b < VT::BOXES; ++b)
+          sm90::tma_load_3d(smem + L::V_OFF + b * VT::BOX_BYTES, &mv, kv_full,
+                            b * VT::W, k0, hb);
       }
       for (int qt = q_begin; qt < num_q; ++qt) {
-        const int i = qt - q_begin, s = i % TC_STAGES, q0 = qt * TC_BQ;
-        sm90::mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
+        const int i = qt - q_begin, s = i % STAGES, q0 = qt * BQ;
+        sm90::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         // the tiles' TMA first, so that the rows' loads run under it; each
         // lane arrives after its own stores
         if (lane == 0) {
-          sm90::mbar_expect_tx(&full[s], 2 * QT::BYTES);
+          sm90::mbar_expect_tx(&full[s], QT::BYTES + OT::BYTES);
           uint8_t* sq = smem + L::Q_OFF + s * QT::BYTES;
-          uint8_t* sdo = smem + L::DO_OFF + s * QT::BYTES;
-          for (int b = 0; b < QT::BOXES; ++b) {
+          uint8_t* sdo = smem + L::DO_OFF + s * OT::BYTES;
+          for (int b = 0; b < QT::BOXES; ++b)
             sm90::tma_load_3d(sq + b * QT::BOX_BYTES, &mq, &full[s], b * QT::W, q0, hb);
-            sm90::tma_load_3d(sdo + b * QT::BOX_BYTES, &mdo, &full[s], b * QT::W, q0, hb);
-          }
+          for (int b = 0; b < OT::BOXES; ++b)
+            sm90::tma_load_3d(sdo + b * OT::BOX_BYTES, &mdo, &full[s], b * OT::W, q0, hb);
         }
-        float* slse = reinterpret_cast<float*>(smem + L::LSE_OFF) + s * TC_BQ;
-        float* sdi = reinterpret_cast<float*>(smem + L::DI_OFF) + s * TC_BQ;
+        float* slse = reinterpret_cast<float*>(smem + L::LSE_OFF) + s * BQ;
+        float* sdi = reinterpret_cast<float*>(smem + L::DI_OFF) + s * BQ;
 #pragma unroll
-        for (int j = 0; j < TC_BQ / 32; ++j) {
+        for (int j = 0; j < BQ / 32; ++j) {
           const int r = lane + 32 * j;
           const bool in = q0 + r < seq;
           slse[r] = in ? lse[rows + q0 + r] * LOG2E : 0.f;   // log2 units
@@ -590,48 +633,55 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     const float scale_log2 = scale * LOG2E;
     const uint64_t k_desc = KT::kmajor(smem);
     const uint64_t v_desc = KT::kmajor(smem + L::V_OFF);
-    float adk[D / 2], adv[D / 2];
+    float adk[DQK / 2], adv[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
-    uint32_t pa[TC_BQ / 16][4], da[TC_BQ / 16][4];
+    for (int i = 0; i < DQK / 2; ++i) adk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) adv[i] = 0.f;
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 
-    // Causal, the first tile (queries k0 .. k0 + 63) lies wholly above
-    // warpgroup 1's keys: it takes the tiles from the second on. Each
+    // Causal, the first 64 / BQ tiles (queries k0 .. k0 + 63) lie wholly
+    // above warpgroup 1's keys: it takes the tiles after them. Each
     // warpgroup takes one turn on the tensor cores per tile it takes, and
     // one more. Turn p issues the products of the tile before (dV, dK),
     // waits for them, issues the scores of the next (S^T, dP^T), hands the
     // tensor cores to the other warpgroup, and computes that tile's P and
     // dS while the other's products run. The fragments are never live
     // beside S^T and dP^T, which at d 128 keeps the turn in 240 registers.
-    const int first = causal && cw == 1;
+    // The turns alternate, warpgroup 0's first, while both have turns
+    // left (n + 1 and n + 1 - skip); warpgroup 0 takes the rest alone.
+    const int skip = causal ? min(64 / BQ, n) : 0;      // warpgroup 1's
+    const int first = cw == 1 ? skip : 0;
     const int m = n - first;                             // tiles taken
-    const int handovers = n + 1 - (causal && cw == 0) - (cw == 1);
+    const int handovers = cw == 0 ? n + 1 - skip : min(n + 1 - skip, n);
+    const int waits = cw == 0 ? 1 + min(n + 1 - skip, n) : n + 1 - skip;
     const uint8_t* sq0 = smem + L::Q_OFF;
     const uint8_t* sdo0 = smem + L::DO_OFF;
     const float* slse0 = reinterpret_cast<const float*>(smem + L::LSE_OFF);
     const float* sdi0 = reinterpret_cast<const float*>(smem + L::DI_OFF);
     sm90::mbar_wait(kv_full, 0);
-    if (first && l == 0) sm90::mbar_arrive(&empty[0]);  // tile 0, unread
+    if (l == 0)
+      for (int i = 0; i < first; ++i) sm90::mbar_arrive(&empty[i]);  // unread
     __syncwarp();   // converged for the aligned barrier instructions
     if (cw == 1) sm90::bar_arrive(TC_TURN + 0, 256);    // warpgroup 0 first
 
     for (int p = 0; p <= m; ++p) {
       const int i = first + p;   // the tile whose scores this turn makes
-      const int s = i % TC_STAGES, sp = (i + TC_STAGES - 1) % TC_STAGES;
-      sm90::bar_sync(TC_TURN + cw, 256);
-      if (p < m) sm90::mbar_wait(&full[s], (i / TC_STAGES) & 1);
+      const int s = i % STAGES, sp = (i + STAGES - 1) % STAGES;
+      if (p < waits) sm90::bar_sync(TC_TURN + cw, 256);
+      if (p < m) sm90::mbar_wait(&full[s], (i / STAGES) & 1);
       sm90::wgmma_fence();
       if (p > 0) {
         // dV += P^T dO and dK += dS^T Q of the tile before (RS, dO and Q
         // read MN-major); once done, its stage goes back
-        const uint64_t dom = sm90::opaque(QT::mnmajor(sdo0 + sp * QT::BYTES));
+        const uint64_t dom = sm90::opaque(OT::mnmajor(sdo0 + sp * OT::BYTES));
         const uint64_t qm = sm90::opaque(QT::mnmajor(sq0 + sp * QT::BYTES));
 #pragma unroll
-        for (int kk = 0; kk < TC_BQ / 16; ++kk)
-          sm90::Wgmma<D>::rs(adv, pa[kk], QT::mnmajor_at(dom, kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          sm90::Wgmma<DV>::rs(adv, pa[kk], OT::mnmajor_at(dom, kk), 1);
 #pragma unroll
-        for (int kk = 0; kk < TC_BQ / 16; ++kk)
-          sm90::Wgmma<D>::rs(adk, da[kk], QT::mnmajor_at(qm, kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          sm90::Wgmma<DQK>::rs(adk, da[kk], QT::mnmajor_at(qm, kk), 1);
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(adv);
@@ -645,24 +695,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       if (p < m) {
         // S^T and dP^T of tile i; the tensor cores go to the other
         // warpgroup while P and dS are made from them
-        float st[TC_BQ / 2], dpt[TC_BQ / 2];
-        dkv_scores<D>(st, k_desc, cw, sq0 + s * QT::BYTES);
-        dkv_scores<D>(dpt, v_desc, cw, sdo0 + s * QT::BYTES);
+        float st[BQ / 2], dpt[BQ / 2];
+        dkv_scores<DQK, BQ>(st, k_desc, cw, sq0 + s * QT::BYTES);
+        dkv_scores<DV, BQ>(dpt, v_desc, cw, sdo0 + s * OT::BYTES);
         if (p < handovers) sm90::bar_arrive(TC_TURN + 1 - cw, 256);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(st);
         sm90::fence_regs(dpt);
-        const int q0 = (q_begin + i) * TC_BQ;
-        const float* slse = slse0 + s * TC_BQ;
-        const float* sdi = sdi0 + s * TC_BQ;
-        const bool edge = (causal && q0 < key_lo + 64) || q0 + TC_BQ > seq ||
+        const int q0 = (q_begin + i) * BQ;
+        const float* slse = slse0 + s * BQ;
+        const float* sdi = sdi0 + s * BQ;
+        const bool edge = (causal && q0 < key_lo + 64) || q0 + BQ > seq ||
                           key_lo + 64 > seq;
         if (edge)
-          dkv_p_ds<true>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq, causal,
-                         scale_log2, scale);
+          dkv_p_ds<true, BQ>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq,
+                             causal, scale_log2, scale);
         else
-          dkv_p_ds<false>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq, causal,
-                          scale_log2, scale);
+          dkv_p_ds<false, BQ>(pa, da, st, dpt, slse, sdi, l, kr, q0, seq,
+                              causal, scale_log2, scale);
       } else if (p < handovers) {
         sm90::bar_arrive(TC_TURN + 1 - cw, 256);
       }
@@ -672,37 +722,40 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     for (int h = 0; h < 2; ++h) {
       const int row = kr + 8 * h;
       if (row >= seq) continue;
-      const size_t base = ((size_t)hb * seq + row) * D + 2 * (l % 4);
+      const size_t kbase = ((size_t)hb * seq + row) * DQK + 2 * (l % 4);
+      const size_t vbase = ((size_t)hb * seq + row) * DV + 2 * (l % 4);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        store2(dk + base + 8 * j, adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
-        store2(dv + base + 8 * j, adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
-      }
+      for (int j = 0; j < DQK / 8; ++j)
+        store2(dk + kbase + 8 * j, adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        store2(dv + vbase + 8 * j, adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
     }
   }
 }
 
-template <typename O, int D>
+template <typename O, int DQK, int DV>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* di, void* dk, void* dv, int hb,
                              int seq, int causal, float scale,
                              cudaStream_t stream) {
+  constexpr int BQ = DkvSmem<DQK, DV>::BQ;
   CUtensorMap mq, mk, mv, mdo;
-  cudaError_t err = sm90::tile_map<TC_BQ, D>(&mq, q, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mk, k, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mv, v, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<TC_BQ, D>(&mdo, dout, hb, seq);
+  cudaError_t err = sm90::tile_map<BQ, DQK>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, DQK>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, DV>(&mv, v, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<BQ, DV>(&mdo, dout, hb, seq);
   if (err != cudaSuccess) return err;
   if (reinterpret_cast<uintptr_t>(dk) % 8 != 0 ||
       reinterpret_cast<uintptr_t>(dv) % 8 != 0)
     return cudaErrorMisalignedAddress;
-  const int bytes = DkvSmem<D>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<O, D>,
+  const int bytes = DkvSmem<DQK, DV>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<O, DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + TC_BK - 1) / TC_BK, hb);
-  flash_bwd_dkv_wgmma_kernel<O, D><<<grid, TC_THREADS, bytes, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<O, DQK, DV><<<grid, TC_THREADS, bytes, stream>>>(
       mq, mk, mv, mdo, lse, di, static_cast<O*>(dk), static_cast<O*>(dv), seq,
       causal, scale);
   return cudaGetLastError();
@@ -712,20 +765,29 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
 
 constexpr int DQ_BQ = 128;              // query rows per block: 64 per consumer warpgroup
 constexpr int DQ_BK = 64;               // key rows per streamed tile
+constexpr int DQ_BK_WIDE = 32;          // DQ_BK at query/key head dim 192
 constexpr int DQ_STAGES = 2;            // K / V ring depth
 
-template <int D> struct DqSmem {
-  using QT = sm90::Tile<DQ_BQ, D>;       // Q and dO, resident
-  using KT = sm90::Tile<DQ_BK, D>;       // K and V, streamed
+// Key rows per streamed tile of K3 at head dims (DQK, DV): DQ_BK, or
+// DQ_BK_WIDE at DQK 192, where dQ's accumulator is 1.5 times d 128's (the
+// header says why).
+template <int DQK> constexpr int dq_bk() { return DQK > 128 ? DQ_BK_WIDE : DQ_BK; }
+
+template <int DQK, int DV> struct DqSmem {
+  static constexpr int BK = dq_bk<DQK>();
+  using QT = sm90::Tile<DQ_BQ, DQK>;     // Q, resident
+  using OT = sm90::Tile<DQ_BQ, DV>;      // dO, resident
+  using KT = sm90::Tile<BK, DQK>;     // K, streamed
+  using VT = sm90::Tile<BK, DV>;      // V, streamed
   static constexpr int DO_OFF = QT::BYTES;
-  static constexpr int K_OFF = 2 * QT::BYTES;
+  static constexpr int K_OFF = QT::BYTES + OT::BYTES;
   static constexpr int V_OFF = K_OFF + DQ_STAGES * KT::BYTES;
-  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * KT::BYTES;
+  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * VT::BYTES;
   // q_full, full[DQ_STAGES], empty[DQ_STAGES]
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + sm90::SMEM_ALIGN;
 };
 
-template <typename O, int D>
+template <typename O, int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
@@ -734,9 +796,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                           const float* __restrict__ lse,
                           const float* __restrict__ di, O* __restrict__ dq,
                           int seq, int causal, float scale) {
-  using L = DqSmem<D>;
+  using L = DqSmem<DQK, DV>;
   using QT = typename L::QT;
+  using OT = typename L::OT;
   using KT = typename L::KT;
+  using VT = typename L::VT;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::aligned_smem(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -746,7 +811,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;   // heavy tiles first
   const int hb = blockIdx.y;
   const int k_end = causal ? min(seq, q0 + DQ_BQ) : seq;
-  const int num_k = (k_end + DQ_BK - 1) / DQ_BK;
+  const int num_k = (k_end + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -763,24 +828,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     // producer: one thread issues every load
     sm90::regs_dealloc<24>();
     if (threadIdx.x == 256) {
-      sm90::mbar_arrive_expect_tx(q_full, 2 * QT::BYTES);
-      for (int b = 0; b < QT::BOXES; ++b) {
+      sm90::mbar_arrive_expect_tx(q_full, QT::BYTES + OT::BYTES);
+      for (int b = 0; b < QT::BOXES; ++b)
         sm90::tma_load_3d(smem + b * QT::BOX_BYTES, &mq, q_full, b * QT::W, q0, hb);
-        sm90::tma_load_3d(smem + L::DO_OFF + b * QT::BOX_BYTES, &mdo, q_full,
-                          b * QT::W, q0, hb);
-      }
+      for (int b = 0; b < OT::BOXES; ++b)
+        sm90::tma_load_3d(smem + L::DO_OFF + b * OT::BOX_BYTES, &mdo, q_full,
+                          b * OT::W, q0, hb);
       for (int kt = 0; kt < num_k; ++kt) {
         const int s = kt % DQ_STAGES;
         sm90::mbar_wait(&empty[s], ((kt / DQ_STAGES) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * KT::BYTES);
+        sm90::mbar_arrive_expect_tx(&full[s], KT::BYTES + VT::BYTES);
         uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
-        uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
-        for (int b = 0; b < KT::BOXES; ++b) {
+        uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
+        for (int b = 0; b < KT::BOXES; ++b)
           sm90::tma_load_3d(sk + b * KT::BOX_BYTES, &mk, &full[s], b * KT::W,
-                            kt * DQ_BK, hb);
-          sm90::tma_load_3d(sv + b * KT::BOX_BYTES, &mv, &full[s], b * KT::W,
-                            kt * DQ_BK, hb);
-        }
+                            kt * BK, hb);
+        for (int b = 0; b < VT::BOXES; ++b)
+          sm90::tma_load_3d(sv + b * VT::BOX_BYTES, &mv, &full[s], b * VT::W,
+                            kt * BK, hb);
       }
     }
   } else {
@@ -799,17 +864,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       lse2[h] = in ? lse[(size_t)hb * seq + row] * LOG2E : 0.f;
       drow[h] = in ? di[(size_t)hb * seq + row] : 0.f;
     }
-    float adq[D / 2];
+    float adq[DQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+    for (int i = 0; i < DQK / 2; ++i) adq[i] = 0.f;
 
     const uint64_t q_desc = QT::kmajor(smem);
-    const uint64_t do_desc = QT::kmajor(smem + L::DO_OFF);
+    const uint64_t do_desc = OT::kmajor(smem + L::DO_OFF);
     sm90::mbar_wait(q_full, 0);
     for (int kt = 0; kt < num_k; ++kt) {
-      const int s = kt % DQ_STAGES, k0 = kt * DQ_BK;
+      const int s = kt % DQ_STAGES, k0 = kt * BK;
       const uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
-      const uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+      const uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
       sm90::mbar_wait(&full[s], (kt / DQ_STAGES) & 1);
       if (causal && k0 >= q_lo + 64) {
         // wholly above this warpgroup's rows: nothing to add, but the
@@ -822,19 +887,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       // tile's keys, both SS, one group
       const uint64_t qd = sm90::opaque(q_desc), dod = sm90::opaque(do_desc);
       const uint64_t kd = sm90::opaque(KT::kmajor(sk));
-      const uint64_t vd = sm90::opaque(KT::kmajor(sv));
-      float sc[DQ_BK / 2], dp[DQ_BK / 2];
+      const uint64_t vd = sm90::opaque(VT::kmajor(sv));
+      float sc[BK / 2], dp[BK / 2];
 #pragma unroll
-      for (int j = 0; j < DQ_BK / 2; ++j) sc[j] = dp[j] = 0.f;
+      for (int j = 0; j < BK / 2; ++j) sc[j] = dp[j] = 0.f;
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<DQ_BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
+      for (int kk = 0; kk < DQK / 16; ++kk)
+        sm90::Wgmma<BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
                                KT::kmajor_at(kd, 0, kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<DQ_BK>::ss(dp, QT::kmajor_at(dod, 64 * wg, kk),
-                               KT::kmajor_at(vd, 0, kk), 1);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        sm90::Wgmma<BK>::ss(dp, OT::kmajor_at(dod, 64 * wg, kk),
+                               VT::kmajor_at(vd, 0, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
@@ -844,11 +909,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       // and scaled before it is rounded, as in the JAX kernel; 0 outside
       // the valid region, which only tiles on the diagonal or at `seq`
       // need. Each dS pair goes to a bf16 A fragment as soon as it is made.
-      const bool edge = (causal && k0 + DQ_BK - 1 > q_lo) || k0 + DQ_BK > seq ||
+      const bool edge = (causal && k0 + BK - 1 > q_lo) || k0 + BK > seq ||
                         q_lo + 64 > seq;
-      uint32_t da[DQ_BK / 16][4];
+      uint32_t da[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           float ds2[2];
@@ -869,8 +934,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       const uint64_t km = sm90::opaque(KT::mnmajor(sk));
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk)
-        sm90::Wgmma<D>::rs(adq, da[kk], KT::mnmajor_at(km, kk), 1);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::Wgmma<DQK>::rs(adq, da[kk], KT::mnmajor_at(km, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(adq);
@@ -882,32 +947,33 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       if (row >= seq) continue;
-      const size_t base = ((size_t)hb * seq + row) * D + 2 * (l % 4);
+      const size_t base = ((size_t)hb * seq + row) * DQK + 2 * (l % 4);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DQK / 8; ++j)
         store2(dq + base + 8 * j, adq[4 * j + 2 * h], adq[4 * j + 2 * h + 1]);
     }
   }
 }
 
-template <typename O, int D>
+template <typename O, int DQK, int DV>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* di, void* dq, int hb, int seq,
                             int causal, float scale, cudaStream_t stream) {
+  constexpr int BK = DqSmem<DQK, DV>::BK;
   CUtensorMap mq, mk, mv, mdo;
-  cudaError_t err = sm90::tile_map<DQ_BQ, D>(&mq, q, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<DQ_BK, D>(&mk, k, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<DQ_BK, D>(&mv, v, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<DQ_BQ, D>(&mdo, dout, hb, seq);
+  cudaError_t err = sm90::tile_map<DQ_BQ, DQK>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<BK, DQK>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<BK, DV>(&mv, v, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<DQ_BQ, DV>(&mdo, dout, hb, seq);
   if (err != cudaSuccess) return err;
   if (reinterpret_cast<uintptr_t>(dq) % 8 != 0) return cudaErrorMisalignedAddress;
-  const int bytes = DqSmem<D>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<O, D>,
+  const int bytes = DqSmem<DQK, DV>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<O, DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + DQ_BQ - 1) / DQ_BQ, hb);
-  flash_bwd_dq_wgmma_kernel<O, D><<<grid, TC_THREADS, bytes, stream>>>(
+  flash_bwd_dq_wgmma_kernel<O, DQK, DV><<<grid, TC_THREADS, bytes, stream>>>(
       mq, mk, mv, mdo, lse, di, static_cast<O*>(dq), seq, causal, scale);
   return cudaGetLastError();
 }
@@ -944,6 +1010,22 @@ cudaError_t launch_scalar(const float* q, const float* k, const float* v,
   return cudaSuccess;
 }
 
+// K2 then K3 on the tensor cores, at head dims (DQK, DV)
+template <typename O, int DQK, int DV>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse, const float* di,
+                         void* dq, void* dk, void* dv, int hb, int seq,
+                         int causal, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (dk != nullptr)
+    err = launch_dkv_wgmma<O, DQK, DV>(q, k, v, dout, lse, di, dk, dv, hb,
+                                       seq, causal, scale, stream);
+  if (err == cudaSuccess && dq != nullptr)
+    err = launch_dq_wgmma<O, DQK, DV>(q, k, v, dout, lse, di, dq, hb, seq,
+                                      causal, scale, stream);
+  return err;
+}
+
 // bf16 inputs take the tensor-core kernels, f32 inputs (and outputs) the
 // scalar ones: chosen by type at compile time
 template <typename T, typename O, int D>
@@ -952,14 +1034,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, void* dk, void* dv, int hb, int seq, int causal,
                    float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    cudaError_t err = cudaSuccess;
-    if (dk != nullptr)
-      err = launch_dkv_wgmma<O, D>(q, k, v, dout, lse, di, dk, dv, hb, seq,
-                                   causal, scale, stream);
-    if (err == cudaSuccess && dq != nullptr)
-      err = launch_dq_wgmma<O, D>(q, k, v, dout, lse, di, dq, hb, seq, causal,
-                                  scale, stream);
-    return err;
+    return launch_wgmma<O, D, D>(q, k, v, dout, lse, di, dq, dk, dv, hb, seq,
+                                 causal, scale, stream);
   } else {
     static_assert(std::is_same_v<T, float> && std::is_same_v<O, float>,
                   "f32 inputs take f32 outputs");
@@ -975,7 +1051,15 @@ template <typename T, typename O>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dq, void* dk, void* dv, int hb, int seq, int d,
-                       int causal, float scale, cudaStream_t s) {
+                       int dv_dim, int causal, float scale, cudaStream_t s) {
+  if (dv_dim != d) {
+    // latent attention's pair, on the tensor cores only
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+      if (d == 192 && dv_dim == 128)
+        return launch_wgmma<O, 192, 128>(q, k, v, dout, lse, di, dq, dk, dv,
+                                         hb, seq, causal, scale, s);
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16: return launch<T, O, 16>(q, k, v, dout, lse, di, dq, dk, dv, hb, seq, causal, scale, s);
     case 32: return launch<T, O, 32>(q, k, v, dout, lse, di, dq, dk, dv, hb, seq, causal, scale, s);
@@ -987,15 +1071,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype (of q, k, v, dout) and out_dtype (of dq, dk, dv): 0 = float32,
-// 1 = bfloat16; out_dtype is dtype or float32. lse and di are f32 (hb, seq). A null dq skips K3; null dk
-// and dv skip K2 (one of them null alone is refused). Returns the first
-// launch error (0 on success); the kernels run on `stream`, unsynced.
+// d: the head dim of q, k, dq and dk; dv_dim: that of v, dout and dv (d,
+// or (192, 128) in bf16). dtype (of q, k, v, dout) and out_dtype (of dq,
+// dk, dv): 0 = float32, 1 = bfloat16; out_dtype is dtype or float32. lse
+// and di are f32 (hb, seq). A null dq skips K3; null dk and dv skip K2
+// (one of them null alone is refused). Returns the first launch error (0
+// on success); the kernels run on `stream`, unsynced.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* di,
                          void* dq, void* dk, void* dv, int hb, int seq, int d,
-                         int dtype, int out_dtype, int causal, float scale,
-                         void* stream) {
+                         int dv_dim, int dtype, int out_dtype, int causal,
+                         float scale, void* stream) {
   if (hb <= 0 || hb > 65535 || seq <= 0) return cudaErrorInvalidValue;
   if ((dk == nullptr) != (dv == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1003,10 +1089,10 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   const float* fdi = static_cast<const float*>(di);
   using bf16 = __nv_bfloat16;
   if (dtype == 0 && out_dtype == 0)
-    return dispatch_d<float, float>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, causal, scale, s);
+    return dispatch_d<float, float>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, dv_dim, causal, scale, s);
   if (dtype == 1 && out_dtype == 1)
-    return dispatch_d<bf16, bf16>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, causal, scale, s);
+    return dispatch_d<bf16, bf16>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, dv_dim, causal, scale, s);
   if (dtype == 1 && out_dtype == 0)
-    return dispatch_d<bf16, float>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, causal, scale, s);
+    return dispatch_d<bf16, float>(q, k, v, dout, flse, fdi, dq, dk, dv, hb, seq, d, dv_dim, causal, scale, s);
   return cudaErrorInvalidValue;
 }

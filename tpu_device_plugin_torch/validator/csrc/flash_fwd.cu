@@ -36,6 +36,15 @@
 // - Tiles are bf16 in shared memory, swizzled by TMA (sm90.cuh): 160 KB
 //   at d 128, one block per SM.
 //
+// Latent attention (MLA) at head dims (192, 128): q and k have the
+// query/key head dim (192), v and o the value head dim (128); the kernel
+// takes them as two template dims, and every other instance is the same
+// code at DQK = DV. S = Q K^T reduces over 12 k-steps, O += P V is an
+// m64n128 product as at d 128, so the accumulators take the registers
+// they take at d 128 (ptxas keeps 16 bytes of spill stores, outside the
+// products: no wgmma serialized). Tiles: Q 48 KB, two stages of K and V
+// 48 + 32 KB each: 208 KB of shared memory.
+//
 // f32 (flash_fwd_kernel, the first, scalar design; exact): f32 tiles in
 // shared memory and scalar f32 FMAs with a 4x4 register tile per thread.
 // On the tensor cores f32 would mean TF32, which the f32 bar refuses. The
@@ -266,26 +275,30 @@ constexpr int TC_CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D> struct FwdSmem {
-  using QT = sm90::Tile<TC_BQ, D>;
-  using KT = sm90::Tile<TC_BK, D>;       // K and V tiles
+// DQK: the query/key head dim, DV: the value head dim (equal but in latent
+// attention)
+template <int DQK, int DV> struct FwdSmem {
+  using QT = sm90::Tile<TC_BQ, DQK>;
+  using KT = sm90::Tile<TC_BK, DQK>;
+  using VT = sm90::Tile<TC_BK, DV>;
   static constexpr int K_OFF = QT::BYTES;
   static constexpr int V_OFF = K_OFF + TC_STAGES * KT::BYTES;
-  static constexpr int BAR_OFF = V_OFF + TC_STAGES * KT::BYTES;
+  static constexpr int BAR_OFF = V_OFF + TC_STAGES * VT::BYTES;
   // q_full, full[TC_STAGES], empty[TC_STAGES]
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * TC_STAGES) + sm90::SMEM_ALIGN;
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mk,
                        const __grid_constant__ CUtensorMap mv,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int seq, int causal, float scale_log2) {
-  using L = FwdSmem<D>;
+  using L = FwdSmem<DQK, DV>;
   using QT = typename L::QT;
   using KT = typename L::KT;
+  using VT = typename L::VT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::aligned_smem(smem_raw);
   uint8_t* sq = smem;
@@ -319,15 +332,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       for (int kt = 0; kt < num_k; ++kt) {
         const int s = kt % TC_STAGES;
         sm90::mbar_wait(&empty[s], ((kt / TC_STAGES) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * KT::BYTES);
+        sm90::mbar_arrive_expect_tx(&full[s], KT::BYTES + VT::BYTES);
         uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
-        uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
-        for (int b = 0; b < KT::BOXES; ++b) {
+        uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
+        for (int b = 0; b < KT::BOXES; ++b)
           sm90::tma_load_3d(sk + b * KT::BOX_BYTES, &mk, &full[s], b * KT::W,
                             kt * TC_BK, hb);
-          sm90::tma_load_3d(sv + b * KT::BOX_BYTES, &mv, &full[s], b * KT::W,
+        for (int b = 0; b < VT::BOXES; ++b)
+          sm90::tma_load_3d(sv + b * VT::BOX_BYTES, &mv, &full[s], b * VT::W,
                             kt * TC_BK, hb);
-        }
       }
     }
   } else {
@@ -336,9 +349,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     sm90::regs_alloc<240>();
     const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
     const int r0 = q0 + 64 * wg + 16 * w + l / 4;
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF};     // running max, log2 units
     float lsum[2] = {0.f, 0.f};          // this thread's part of the row sum
 
@@ -347,7 +360,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     for (int kt = 0; kt < num_k; ++kt) {
       const int s = kt % TC_STAGES;
       const uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
-      const uint8_t* sv = smem + L::V_OFF + s * KT::BYTES;
+      const uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
       sm90::mbar_wait(&full[s], (kt / TC_STAGES) & 1);
 
       // S = Q K^T over this warpgroup's 64 rows and the tile's 128 keys
@@ -357,7 +370,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       const uint64_t qd = sm90::opaque(q_desc), kd = sm90::opaque(KT::kmajor(sk));
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         sm90::Wgmma<TC_BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
                                KT::kmajor_at(kd, 0, kk), 1);
       sm90::wgmma_commit();
@@ -407,14 +420,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int h = 0; h < 2; ++h) lsum[h] = alpha[h] * lsum[h] + rs[h];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // O += P V, V read MN-major
-      const uint64_t vd = sm90::opaque(KT::mnmajor(sv));
+      const uint64_t vd = sm90::opaque(VT::mnmajor(sv));
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TC_BK / 16; ++kk)
-        sm90::Wgmma<D>::rs(acc, pa[kk], KT::mnmajor_at(vd, kk), 1);
+        sm90::Wgmma<DV>::rs(acc, pa[kk], VT::mnmajor_at(vd, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -429,9 +442,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       const int row = r0 + 8 * h;
       if (row >= seq) continue;
       const float inv = 1.f / lsum[h];
-      __nv_bfloat16* orow = o + ((size_t)hb * seq + row) * D + 2 * (l % 4);
+      __nv_bfloat16* orow = o + ((size_t)hb * seq + row) * DV + 2 * (l % 4);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j) = sm90::pack_bf16(
             acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       if (lse != nullptr && l % 4 == 0)
@@ -440,22 +453,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          void* lse, int hb, int seq, int causal, float scale,
                          cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = sm90::tile_map<TC_BQ, D>(&mq, q, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mk, k, hb, seq);
-  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, D>(&mv, v, hb, seq);
+  cudaError_t err = sm90::tile_map<TC_BQ, DQK>(&mq, q, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, DQK>(&mk, k, hb, seq);
+  if (err == cudaSuccess) err = sm90::tile_map<TC_BK, DV>(&mv, v, hb, seq);
   if (err != cudaSuccess) return err;
   if (reinterpret_cast<uintptr_t>(o) % 4 != 0) return cudaErrorMisalignedAddress;
-  const int bytes = FwdSmem<D>::BYTES;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+  const int bytes = FwdSmem<DQK, DV>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + TC_BQ - 1) / TC_BQ, hb);
-  flash_fwd_wgmma_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+  flash_fwd_wgmma_kernel<DQK, DV><<<grid, TC_THREADS, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       seq, causal, scale * LOG2E);
   return cudaGetLastError();
@@ -467,15 +480,23 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      void* lse, int hb, int seq, int causal, float scale,
                      cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return launch_wgmma<D>(q, k, v, o, lse, hb, seq, causal, scale, stream);
+    return launch_wgmma<D, D>(q, k, v, o, lse, hb, seq, causal, scale, stream);
   else
     return launch<T, D>(q, k, v, o, lse, hb, seq, causal, scale, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int hb, int seq, int d, int causal,
+                       void* lse, int hb, int seq, int d, int dv, int causal,
                        float scale, cudaStream_t stream) {
+  if (dv != d) {
+    // latent attention's pair, on the tensor cores only
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+      if (d == 192 && dv == 128)
+        return launch_wgmma<192, 128>(q, k, v, o, lse, hb, seq, causal, scale,
+                                      stream);
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16: return launch_d<T, 16>(q, k, v, o, lse, hb, seq, causal, scale, stream);
     case 32: return launch_d<T, 32>(q, k, v, o, lse, hb, seq, causal, scale, stream);
@@ -487,18 +508,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns the launch's
-// cudaGetLastError() (0 on success), or the error of making the bf16
-// kernel's tensor maps (inputs must be 16-byte aligned); the kernel runs
-// on `stream`, unsynced.
+// d: the head dim of q and k, dv: that of v and o (d, or (192, 128) in
+// bf16). dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns the
+// launch's cudaGetLastError() (0 on success), or the error of making the
+// bf16 kernel's tensor maps (inputs must be 16-byte aligned); the kernel
+// runs on `stream`, unsynced.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int hb, int seq, int d, int dtype,
+                         void* lse, int hb, int seq, int d, int dv, int dtype,
                          int causal, float scale, void* stream) {
   if (hb <= 0 || hb > 65535 || seq <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, o, lse, hb, seq, d, causal, scale, s);
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, hb, seq, d, causal, scale, s);
+    case 0: return dispatch_d<float>(q, k, v, o, lse, hb, seq, d, dv, causal, scale, s);
+    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, hb, seq, d, dv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 """Flash attention — the burn-in's hot op, on hand-written CUDA kernels.
 
 Port of `tpu_device_plugin/validator/flash_attention.py`. Causal (or full)
-multi-head attention over (heads_batch, seq, head_dim) tensors, computed
-blockwise so the (S, S) score matrix never reaches device memory, in
+multi-head attention over (heads_batch, seq, head_dim) tensors (v, and
+so o, may have a head dim of its own: latent attention's (192, 128)),
+computed blockwise so the (S, S) score matrix never reaches device memory, in
 either direction:
 
 - the forward (K1, `csrc/flash_fwd.cu`) runs the online-softmax
@@ -34,8 +35,12 @@ from ._kernels import launch, on_card
 
 NEG_INF = -1e30
 
-# head dims the CUDA kernels are instantiated for (csrc/*.cu)
+# head dims the CUDA kernels are instantiated for (csrc/*.cu), shared by
+# q, k and v; and the (q/k, v) pairs of head dims they are instantiated
+# for besides, in bf16 only (latent attention: MLA's 128 + 64 query/key
+# dims over 128 value dims)
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIM_PAIRS = ((192, 128),)
 # K1's key tile (TC_BK in csrc/flash_fwd.cu); the plain forward rounds P
 # over key blocks of this size, as K1 does
 KEY_BLOCK = 128
@@ -209,25 +214,37 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float,
     return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
 
 
-def _check_kernel_inputs(q, *others):
-    tensors = (q, *others)
-    if q.dim() != 3 or any(t.shape != q.shape for t in others):
+def _check_kernel_inputs(q, k, v, *others):
+    """q and k of one shape (heads_batch, seq, head_dim), v (and dO) of one
+    shape (heads_batch, seq, v_head_dim), at head dims a kernel is built
+    for."""
+    tensors = (q, k, v, *others)
+    if (q.dim() != 3 or k.shape != q.shape or v.dim() != 3
+            or v.shape[:2] != q.shape[:2]
+            or any(t.shape != v.shape for t in others)):
         raise ValueError(
-            "flash_attention takes q, k, v (and dO) of one shape (heads_batch, "
-            f"seq, head_dim); got {[tuple(t.shape) for t in tensors]}")
-    if any(t.dtype != q.dtype for t in others) or q.dtype not in _DTYPE_CODE:
+            "flash_attention takes q and k of one shape (heads_batch, seq, "
+            "head_dim) and v (and dO) of one shape (heads_batch, seq, "
+            f"v_head_dim); got {[tuple(t.shape) for t in tensors]}")
+    if any(t.dtype != q.dtype for t in tensors) or q.dtype not in _DTYPE_CODE:
         raise ValueError("flash_attention kernel takes float32 or bfloat16 "
                          "tensors of one dtype; got "
                          f"{[t.dtype for t in tensors]}")
-    if any(t.device != q.device for t in others):
+    if any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention kernel needs contiguous q, k, v "
                          "(call .contiguous() after folding heads)")
     hb, seq, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
+    dv = v.shape[-1]
+    if dv == d and d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel has no head_dim {d}; "
                          f"built for {KERNEL_HEAD_DIMS}")
+    if dv != d and ((d, dv) not in KERNEL_HEAD_DIM_PAIRS
+                    or q.dtype != torch.bfloat16):
+        raise ValueError(f"flash_attention kernel has no head_dim pair "
+                         f"({d}, {dv}) in {q.dtype}; built for "
+                         f"{KERNEL_HEAD_DIM_PAIRS} in bfloat16")
     if not (0 < hb <= 65535 and seq > 0):
         raise ValueError(f"flash_attention kernel needs 0 < heads_batch <= "
                          f"65535 and seq > 0; got {hb}, {seq}")
@@ -241,12 +258,12 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool,
         return flash_attention_plain(q, k, v, sm_scale, causal, return_lse)
     _check_kernel_inputs(q, k, v)
     hb, seq, d = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty_like(v)
     lse = (torch.empty((hb, seq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            o.data_ptr(), lse.data_ptr() if lse is not None else None, hb, seq,
-           d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
+           d, v.shape[-1], _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
            launches=launches)
     return (o, lse) if return_lse else o
 
@@ -255,8 +272,8 @@ def launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale: float,
                causal: bool) -> None:
     """Launch K2 (into dk, dv) and K3 (into dq) of csrc/flash_bwd.cu on the
     current stream. A None dq skips K3, None dk and dv skip K2. Inputs are
-    contiguous CUDA tensors; lse and di f32 (heads_batch, seq); outputs of
-    q's shape in q's dtype or f32."""
+    contiguous CUDA tensors; lse and di f32 (heads_batch, seq); outputs
+    (dq and dk of q's shape, dv of v's) in q's dtype or f32."""
     _check_kernel_inputs(q, k, v, do)
     hb, seq, d = q.shape
     outs = [t for t in (dq, dk, dv) if t is not None]
@@ -267,18 +284,20 @@ def launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale: float,
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError("lse and di must be contiguous f32 "
                              f"(heads_batch, seq) on {q.device}")
-    if any(t.shape != q.shape or t.device != q.device or not t.is_contiguous()
-           or t.dtype != outs[0].dtype
-           or t.dtype not in (q.dtype, torch.float32) for t in outs):
-        raise ValueError("dq, dk, dv must be contiguous tensors of q's shape, "
-                         "of q's dtype or f32, of one dtype, on q's device")
+    if any(t.shape != like.shape or t.device != q.device
+           or not t.is_contiguous() or t.dtype != outs[0].dtype
+           or t.dtype not in (q.dtype, torch.float32)
+           for t, like in ((dq, q), (dk, q), (dv, v)) if t is not None):
+        raise ValueError("dq and dk must be contiguous tensors of q's shape, "
+                         "dv of v's, of q's dtype or f32, of one dtype, on "
+                         "q's device")
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     launch("flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            do.data_ptr(), lse.data_ptr(), di.data_ptr(), ptr(dq), ptr(dk),
-           ptr(dv), hb, seq, d, _DTYPE_CODE[q.dtype],
+           ptr(dv), hb, seq, d, v.shape[-1], _DTYPE_CODE[q.dtype],
            _DTYPE_CODE[outs[0].dtype], int(causal), float(sm_scale),
            launches=launches,
            count=[name for name, out in (("flash_bwd_dkv", dk),
@@ -298,8 +317,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, causal: bool,
                                          causal, out_dtype, di)
     if di is None:
         di = _row_dot(do, o)
-    dq, dk, dv = (torch.empty(q.shape, dtype=out_dtype or q.dtype,
-                              device=q.device) for _ in range(3))
+    dq, dk, dv = (torch.empty(like.shape, dtype=out_dtype or q.dtype,
+                              device=q.device) for like in (q, k, v))
     launch_bwd(q, k, v, do, lse, di, dq, dk, dv, sm_scale, causal)
     return dq, dk, dv
 

@@ -5,12 +5,15 @@ multi-head causal attention, GELU MLP or top-1 switch MoE, unembedding,
 cross-entropy, and SGD with momentum, on one device or on a
 (pp, dp, sp, ep, tp) mesh (mesh.py).
 
-A second block, the hybrid one (LFM2's, e.g. LFM2-8B-A1B; chosen by
-`ModelConfig.layer_types`), runs on one device through the same entry
-points, with RMSNorms with weights (`w = 1 + g`, g the leaf) and the head
-tied to the embedding. Each layer of either block is a token mixer and an
-MLP of the kinds `ModelConfig.kinds` names: their functions in `MIXERS`
-and `FFNS`, their leaves in `_part_leaves` (`leaf_shapes`).
+A second block, the hybrid one (chosen by `ModelConfig.layer_types`),
+runs on one device through the same entry points, with RMSNorms with
+weights (`w = 1 + g`, g the leaf) and the head tied to the embedding
+unless `untied_head`: LFM2's (e.g. LFM2-8B-A1B: gated short-conv and GQA
+layers), and DeepSeek-V3's (e.g. Moonlight-16B-A3B: multi-head latent
+attention, shared experts beside the routed ones, an untied head). Each
+layer of either block is a token mixer and an MLP of the kinds
+`ModelConfig.kinds` names: their functions in `MIXERS` and `FFNS`, their
+leaves in `_part_leaves` (`leaf_shapes`).
 
 - Weights keep the JAX layout: `(in, out)` matrices used as `x @ W`, a
   layer's stacked on a leading dim; those of the JAX package load with
@@ -88,17 +91,22 @@ class ModelConfig:
     # recompute each layer's activations in the backward instead of
     # keeping them (torch.utils.checkpoint; the JAX version's jax.checkpoint)
     remat: bool = False
-    # The hybrid block (LFM2's), chosen by `layer_types`: each layer's
-    # token mixer in order, "conv" (a gated short convolution) or
-    # "attention" ("full_attention" too); empty for the block above. Its
+    # The hybrid block, chosen by `layer_types`: each layer's token mixer
+    # in order, "conv" (a gated short convolution), "attention"
+    # ("full_attention" too; with an RMSNorm on each query and key head) or
+    # "mla" (multi-head latent attention); empty for the block above. Its
     # MLPs and experts are SwiGLU, its MoE dropless over the top
     # experts_per_token of sigmoid scores plus a selection bias, its
-    # RMSNorms (one on each query and key head too) have weights, and its
-    # head is tied to the embedding. Its numbers, each at its default in
-    # the block above: key-value heads (0: n_heads); dense layers before the
-    # MoE ones; the experts' width (0: d_ff); experts per token; the
-    # experts held here (0: n_experts, which routing always spans); RoPE's
-    # theta; the norms' eps.
+    # RMSNorms have weights, and its head is tied to the embedding unless
+    # untied_head. Its numbers, each at its default in the block above:
+    # key-value heads (0: n_heads); dense layers before the MoE ones; the
+    # experts' width (0: d_ff); experts per token; the experts held here
+    # (0: n_experts, which routing always spans); RoPE's theta; the norms'
+    # eps; latent attention's widths: the latent, each query and key
+    # head's dims without and with RoPE, each value head's; the shared
+    # experts' width (0: none), run on every token beside the routed ones;
+    # the routed weights' scale and the epsilon of their normaliser; the
+    # head untied.
     layer_types: Tuple[str, ...] = ()
     n_kv_heads: int = 0
     n_dense_layers: int = 0
@@ -107,6 +115,14 @@ class ModelConfig:
     experts_held: int = 0
     rope_theta: float = 0.0
     norm_eps: float = 1e-6
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    shared_d_ff: int = 0
+    routed_scale: float = 1.0
+    router_eps: float = 1e-6
+    untied_head: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "layer_types", tuple(self.layer_types))
@@ -117,9 +133,15 @@ class ModelConfig:
                 raise ValueError(f"{moved} belong to the hybrid block, which "
                                  "layer_types chooses")
             return
-        kinds = set(self.layer_types) - {"conv", *_ATTENTION}
+        kinds = set(self.layer_types) - {*_OWN_MIXERS, *_ATTENTION}
         if kinds:
             raise ValueError(f"unknown layer types {sorted(kinds)}")
+        if "mla" in self.layer_types and (
+                min(self.kv_lora_rank, self.qk_nope_head_dim,
+                    self.qk_rope_head_dim, self.v_head_dim) <= 0
+                or self.qk_rope_head_dim % 2):
+            raise ValueError("mla layers need kv_lora_rank, qk_nope_head_dim, "
+                             "qk_rope_head_dim (even) and v_head_dim")
         if len(self.layer_types) != self.n_layers:
             raise ValueError(f"{len(self.layer_types)} layer_types for "
                              f"n_layers={self.n_layers}")
@@ -131,31 +153,47 @@ class ModelConfig:
 
     @property
     def hybrid(self) -> bool:
-        """Whether this is the hybrid block (`layer_types` given)."""
+        """Whether this is the hybrid block (`layer_types` given): its
+        norms have weights."""
         return bool(self.layer_types)
+
+    @property
+    def tied(self) -> bool:
+        """Whether the head is tied to the embedding (logits = h embed^T):
+        the hybrid block's unless `untied_head`; the block above has its
+        own `unembed`."""
+        return self.hybrid and not self.untied_head
 
     def kinds(self, n: int) -> List[Tuple[str, str]]:
         """(token mixer, MLP) of each of `n` layers, keys of `MIXERS` and
         `FFNS`: above, "attention" and "mlp", or "switch" with n_experts;
-        in the hybrid block "conv" or "qk_norm_attention" by `layer_types`,
-        and "swiglu", or "dropless" past n_dense_layers with n_experts."""
+        in the hybrid block "conv", "mla" or "qk_norm_attention" by
+        `layer_types`, and "swiglu", or past n_dense_layers with n_experts
+        "dropless", "shared_dropless" with shared_d_ff."""
         if not self.hybrid:
             return [("attention", "switch" if self.n_experts else "mlp")] * n
-        return [("conv" if self.layer_types[i] == "conv"
-                 else "qk_norm_attention",
-                 "dropless" if self.n_experts and i >= self.n_dense_layers
+        moe = "shared_dropless" if self.shared_d_ff else "dropless"
+        types = self.layer_types
+        return [(types[i] if types[i] in _OWN_MIXERS else "qk_norm_attention",
+                 moe if self.n_experts and i >= self.n_dense_layers
                  else "swiglu") for i in range(n)]
 
 
 _ATTENTION = ("attention", "full_attention")
+_OWN_MIXERS = ("conv", "mla")   # layer types that name their mixer's kind
 _HYBRID_NUMBERS = ("n_kv_heads", "n_dense_layers", "expert_d_ff",
                    "experts_per_token", "experts_held", "rope_theta",
-                   "norm_eps")
+                   "norm_eps", "kv_lora_rank", "qk_nope_head_dim",
+                   "qk_rope_head_dim", "v_head_dim", "shared_d_ff",
+                   "routed_scale", "router_eps", "untied_head")
 CONV_TAPS = 3   # the short convolution's taps (LFM2's conv_L_cache)
+# the latent's RMSNorm eps in latent attention: DeepSeek-V3's
+# kv_a_layernorm takes its norm's default, not the block's rms_norm_eps
+LATENT_EPS = 1e-6
 # norm weights are stored as offsets from 1 and drawn as 0 here; the bias
 # only selects experts
-_ZERO_INIT = ("q_norm", "k_norm", "op_norm", "ffn_norm", "final_norm",
-              "moe_bias")
+_ZERO_INIT = ("q_norm", "k_norm", "kv_norm", "op_norm", "ffn_norm",
+              "final_norm", "moe_bias")
 
 
 def leaf_shapes(cfg: ModelConfig) -> Shapes:
@@ -335,6 +373,15 @@ def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         # i // (h / kv); the copy's backward sums each group
         k = k[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
         v = v[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
+    out = _attend(q, k, v, dh ** -0.5, attention, ax)
+    return _row_sharded(out, layer["wo"], ax)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            attention: str, ax: Optional[_Axes]) -> torch.Tensor:
+    """Causal attention of q and k (b, s, h, head dim) over v (b, s, h,
+    v's head dim), scores scaled by `scale`: (b, s, h x v's head dim)."""
+    b, s, h, _ = q.shape
     if attention == "ring":
         from .ring_attention import (ProcessGroupRing, ThreadRing,
                                      ring_attention, ring_flash_attention)
@@ -343,32 +390,90 @@ def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         # the kernels on the card, the einsum ring on CPU tensors, as the
         # JAX workload runs ring flash on the chip and the einsum ring
         # under interpret
-        run = ring_flash_attention if x.is_cuda else ring_attention
+        run = ring_flash_attention if q.is_cuda else ring_attention
         o = run(_fold_heads(q).contiguous(), _fold_heads(k).contiguous(),
-                _fold_heads(v).contiguous(), dh ** -0.5, ring)
-        out = _unfold_heads(o, b, h).reshape(b, s, h * dh)
-    elif attention == "flash":
+                _fold_heads(v).contiguous(), scale, ring)
+        return _unfold_heads(o, b, h).reshape(b, s, -1)
+    if attention == "flash":
         from .flash_attention import flash_attention
         o = flash_attention(_fold_heads(q).contiguous(),
                             _fold_heads(k).contiguous(),
-                            _fold_heads(v).contiguous(), None, True)
-        out = _unfold_heads(o, b, h).reshape(b, s, h * dh)
-    else:
-        # sequence parallelism: queries stay sharded, keys and values are
-        # gathered over sp; the causal mask is global, so it is offset by
-        # this shard's first position
-        offset = 0
-        if ax is not None and ax.size["sp"] > 1:
-            k = gather(k, 1, ax.group["sp"], sum_grads=True)
-            v = gather(v, 1, ax.group["sp"], sum_grads=True)
-            offset = ax.index["sp"] * s
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (dh ** -0.5)
-        mask = torch.ones((s, k.shape[1]), dtype=torch.bool,
-                          device=x.device).tril(offset)
-        scores = torch.where(mask, scores, -1e9)
-        probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * dh)
-    return _row_sharded(out, layer["wo"], ax)
+                            _fold_heads(v).contiguous(), scale, True)
+        return _unfold_heads(o, b, h).reshape(b, s, -1)
+    # einsum; sequence parallelism: queries stay sharded, keys and values
+    # are gathered over sp; the causal mask is global, so it is offset by
+    # this shard's first position
+    offset = 0
+    if ax is not None and ax.size["sp"] > 1:
+        k = gather(k, 1, ax.group["sp"], sum_grads=True)
+        v = gather(v, 1, ax.group["sp"], sum_grads=True)
+        offset = ax.index["sp"] * s
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = torch.ones((s, k.shape[1]), dtype=torch.bool,
+                      device=q.device).tril(offset)
+    scores = torch.where(mask, scores, -1e9)
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
+
+
+def _rotary_pairs(s: int, r: int, theta: float, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE's f32 cos and sin, (s, 1, r/2), for rotating adjacent pairs:
+    position p turns the pair (2i, 2i + 1) by p x theta ** (-2i / r)."""
+    inv = theta ** -(torch.arange(0, r, 2, device=device,
+                                  dtype=torch.float32) / r)
+    angle = torch.arange(s, device=device, dtype=torch.float32)[:, None] * inv
+    return angle.cos()[:, None], angle.sin()[:, None]
+
+
+def _rope_pairs(t: torch.Tensor, rope) -> torch.Tensor:
+    """(b, s, heads, r) bf16 turned by RoPE (`_rotary_pairs`' cos, sin) over
+    adjacent pairs, in f32, rounded to bf16 once. DeepSeek-V3's published
+    form (rope_interleave) first moves the even dims before the odd ones
+    and then turns the halves; the move is the same for q and k, so q . k
+    is the same, and the pairs are turned in place here."""
+    cos, sin = rope
+    y = t.float().unflatten(-1, (-1, 2))
+    y0, y1 = y[..., 0], y[..., 1]
+    y = torch.stack([y0 * cos - y1 * sin, y1 * cos + y0 * sin], -1)
+    return y.flatten(-2).to(t.dtype)
+
+
+def _mla(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+         attention: str) -> torch.Tensor:
+    """Multi-head latent attention (DeepSeek-V3's, without a query LoRA) on
+    x (b, s, d) bf16, under the span `mla.project` up to the attention:
+
+    - q = x @ q_proj: per head qk_nope_head_dim dims without RoPE and
+      qk_rope_head_dim with;
+    - x @ kv_a: the latent (kv_lora_rank) and one RoPE key shared by every
+      head; the latent through an RMSNorm (weight 1 + kv_norm, LATENT_EPS),
+      then @ kv_b: per head a key without RoPE and a value (v_head_dim);
+    - RoPE on q's rope dims and on the shared key (`_rope_pairs`); each
+      head's key is [its own, the shared one], whose gradient is so summed
+      over the heads;
+    - causal attention scaled by the query/key head dim ** -0.5: flash
+      takes K1-K3 at (qk head dim, v_head_dim), nothing padded (counter
+      `mla.flash_rows`, b s heads a layer); then @ o_proj."""
+    if attention == "ring":
+        raise ValueError("latent attention runs flash or einsum attention")
+    b, s, _ = x.shape
+    h, nope, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    lat = cfg.kv_lora_rank
+    with tracing.span("mla.project"):
+        q = (x @ _bf16(layer["q_proj"])).view(b, s, h, nope + r)
+        kv = x @ _bf16(layer["kv_a"])
+        latent = _rms_norm(kv[..., :lat], LATENT_EPS, layer["kv_norm"])
+        kvb = (latent @ _bf16(layer["kv_b"])).view(b, s, h, -1)
+        rope = _rotary_pairs(s, r, cfg.rope_theta, x.device)
+        q = torch.cat([q[..., :nope], _rope_pairs(q[..., nope:], rope)], -1)
+        shared = _rope_pairs(kv[..., None, lat:], rope)
+        k = torch.cat([kvb[..., :nope], shared.expand(b, s, h, r)], -1)
+        v = kvb[..., nope:]
+    out = _attend(q, k, v, (nope + r) ** -0.5, attention, None)
+    if attention == "flash":
+        tracing.count("mla.flash_rows", b * s * h)
+    return out @ _bf16(layer["o_proj"])
 
 
 def _mlp(x: torch.Tensor, layer: Params,
@@ -380,10 +485,11 @@ def _mlp(x: torch.Tensor, layer: Params,
     return _row_sharded(hidden, layer["w2"], ax)
 
 
-def _swiglu(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+            w2: torch.Tensor) -> torch.Tensor:
     """The hybrid block's dense MLP, w2(silu(w1 x) * w3 x), in bf16."""
-    hidden = F.silu(x @ _bf16(layer["w1"])) * (x @ _bf16(layer["w3"]))
-    return hidden @ _bf16(layer["w2"])
+    hidden = F.silu(x @ _bf16(w1)) * (x @ _bf16(w3))
+    return hidden @ _bf16(w2)
 
 
 def _short_conv(x: torch.Tensor, layer: Params) -> torch.Tensor:
@@ -528,13 +634,18 @@ def _route_topk(xt: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
     s = sigmoid(f32 router logits of the bf16 operands, as `_route`); the
     experts_per_token largest s + bias, the bias selecting only (no
     gradient reaches it); their weights the chosen s, divided by their sum
-    + 1e-6 (LFM2's norm_topk_prob; its routed_scaling_factor is 1).
-    Returns (weights (t, k) f32, experts (t, k))."""
+    + router_eps (norm_topk_prob: LFM2's 1e-6, DeepSeek-V3's 1e-20), times
+    routed_scale where it is not 1 (routed_scaling_factor). One group of
+    experts: DeepSeek-V3's group-limited choice with n_group = topk_group
+    = 1 keeps every expert. Returns (weights (t, k) f32, experts (t, k))."""
     scores = torch.sigmoid(xt.float() @ _bf16(wr).float())
     chosen = (scores.detach() + bias.detach()).topk(
         cfg.experts_per_token, -1).indices
     weights = scores.gather(1, chosen)
-    return weights / (weights.sum(-1, keepdim=True) + 1e-6), chosen
+    weights = weights / (weights.sum(-1, keepdim=True) + cfg.router_eps)
+    if cfg.routed_scale != 1:
+        weights = weights * cfg.routed_scale
+    return weights, chosen
 
 
 def _dispatch_plan(chosen: torch.Tensor, first: int, held: int):
@@ -628,7 +739,9 @@ def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     is read back to the host. The experts' products are recomputed in the
     backward (checkpoint), the bf16 casts of the f32 expert weights too:
     the buffers are sized for any routing, four times the expected rows
-    at top-4 of 32 over 8 held."""
+    at top-4 of 32 over 8 held. Under `cfg.remat` the whole layer is
+    recomputed already, so the experts are not checkpointed again (that
+    would run their products a third time)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -643,10 +756,24 @@ def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         tracing.count("moe.dropped", 0)
         tracing.count("moe.max_rows", torch.diff(ends, prepend=ends[:1] * 0)
                       .max())
-    out = checkpoint(_held_experts, xt, layer["w1e"], layer["w3e"],
-                     layer["w2e"], weights, *plan, use_reentrant=False,
-                     preserve_rng_state=False)
+    args = (xt, layer["w1e"], layer["w3e"], layer["w2e"], weights, *plan)
+    out = (_held_experts(*args) if cfg.remat else
+           checkpoint(_held_experts, *args, use_reentrant=False,
+                      preserve_rng_state=False))
     return out.view(b, s, d)
+
+
+def _moe_shared(x: torch.Tensor, layer: Params,
+                cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's MoE on x (b, s, d) bf16: the dropless routed experts
+    held here (`_moe_dropless`) plus the shared experts, one SwiGLU of
+    width shared_d_ff on every token (span `moe.shared`), added in bf16 as
+    the published layer adds them. Every chip of an expert-parallel
+    deployment computes the shared experts alike, for its own tokens."""
+    routed = _moe_dropless(x, layer, cfg)
+    with tracing.span("moe.shared"):
+        shared = _swiglu(x, layer["ws1"], layer["ws3"], layer["ws2"])
+    return routed + shared
 
 
 def _rms_norm(x: torch.Tensor, eps: float = 1e-6,
@@ -663,13 +790,15 @@ def _rms_norm(x: torch.Tensor, eps: float = 1e-6,
 
 def _block_leaves(cfg: ModelConfig) -> Tuple[Shapes, Shapes, Shapes]:
     """The block's own leaves, no part's: before the layers (`embed`; and
-    `unembed` unless `_logits` ties the head), of every layer (the hybrid
-    block's norm offsets, `_block_norm`), after them (`final_norm`)."""
+    `unembed` unless `cfg.tied`), of every layer (the hybrid block's norm
+    offsets, `_block_norm`), after them (`final_norm`)."""
     d, v = cfg.d_model, cfg.vocab
+    first = {"embed": (v, d)} if cfg.tied else {"embed": (v, d),
+                                                "unembed": (d, v)}
     if cfg.hybrid:
-        return ({"embed": (v, d)}, {"op_norm": (d,), "ffn_norm": (d,)},
+        return (first, {"op_norm": (d,), "ffn_norm": (d,)},
                 {"final_norm": (d,)})
-    return {"embed": (v, d), "unembed": (d, v)}, {}, {}
+    return first, {}, {}
 
 
 def _block_norm(x: torch.Tensor, leaves: Params, key: str,
@@ -683,20 +812,28 @@ def _part_leaves(cfg: ModelConfig) -> Dict[str, Shapes]:
     """Each kind of `MIXERS` and `FFNS` with its leaves, {name: one layer's
     shape}, in the order `leaf_shapes` stacks them, and so `init_params`
     draws them: the mixers, the MoE kinds, the dense ones."""
-    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    dh = d // cfg.n_heads
-    kv = (cfg.n_kv_heads or cfg.n_heads) * dh
+    d, ff, e, h = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_heads
+    dh = d // h
+    kv = (cfg.n_kv_heads or h) * dh
     fe, held = cfg.expert_d_ff or ff, cfg.experts_held or e
+    fs, lat = cfg.shared_d_ff, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     attention = {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d)}
     w1e, w2e = (held, d, fe), (held, fe, d)
+    dropless = {"wr": (d, e), "w1e": w1e, "w3e": w1e, "w2e": w2e,
+                "moe_bias": (e,)}
     return {
         "attention": attention,
         "qk_norm_attention": {**attention, "q_norm": (dh,), "k_norm": (dh,)},
         "conv": {"conv_in": (d, 3 * d), "conv_w": (CONV_TAPS, d),
                  "conv_out": (d, d)},
+        "mla": {"q_proj": (d, h * (nope + rope)), "kv_a": (d, lat + rope),
+                "kv_norm": (lat,), "kv_b": (lat, h * (nope + dv)),
+                "o_proj": (h * dv, d)},
         "switch": {"wr": (d, e), "w1e": w1e, "w2e": w2e},
-        "dropless": {"wr": (d, e), "w1e": w1e, "w3e": w1e, "w2e": w2e,
-                     "moe_bias": (e,)},
+        "dropless": dropless,
+        "shared_dropless": {**dropless, "ws1": (d, fs), "ws3": (d, fs),
+                            "ws2": (fs, d)},
         "mlp": {"w1": (d, ff), "w2": (ff, d)},
         "swiglu": {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)},
     }
@@ -715,14 +852,21 @@ MIXERS: Dict[str, _Part] = {
     "qk_norm_attention": _Part("workload.attention",
                                partial(_attention, qk_norm=True)),
     "conv": _Part("workload.conv", lambda h, layer, *_: _short_conv(h, layer)),
+    "mla": _Part("workload.attention",
+                 lambda h, layer, cfg, attention, _: _mla(h, layer, cfg,
+                                                          attention)),
 }
 FFNS: Dict[str, _Part] = {
     "switch": _Part("workload.ffn",
                     lambda h, layer, cfg, _, ax: _moe(h, layer, cfg, ax)),
     "dropless": _Part("workload.ffn",
                       lambda h, layer, cfg, *_: _moe_dropless(h, layer, cfg)),
+    "shared_dropless": _Part("workload.ffn",
+                             lambda h, layer, cfg, *_: _moe_shared(h, layer,
+                                                                   cfg)),
     "mlp": _Part("workload.ffn", lambda h, layer, _, __, ax: _mlp(h, layer, ax)),
-    "swiglu": _Part("workload.ffn", lambda h, layer, *_: _swiglu(h, layer)),
+    "swiglu": _Part("workload.ffn", lambda h, layer, *_: _swiglu(
+        h, layer["w1"], layer["w3"], layer["w2"])),
 }
 
 
@@ -787,10 +931,10 @@ def _head(params: Params, x: torch.Tensor, ax: Optional[_Axes],
 def _logits(params: Params, x: torch.Tensor, ax: Optional[_Axes],
             cfg: ModelConfig) -> torch.Tensor:
     """bf16 logits from the last layer's residual stream: the final
-    RMSNorm (`final_norm` in the hybrid block) and the unembedding, which
-    the hybrid block ties to the embedding (its transpose)."""
+    RMSNorm (`final_norm` in the hybrid block) and the unembedding, tied to
+    the embedding (its transpose) where `cfg.tied`."""
     x = _block_norm(x, params, "final_norm", cfg)
-    if cfg.hybrid:
+    if cfg.tied:
         return x @ _bf16(params["embed"]).t()
     if ax is not None:
         # unembed is row-sharded: each rank multiplies its d-slice
