@@ -16,7 +16,9 @@ failure:
    plain version, and the one PyTorch call computing the same function
    (`library_ms`, a yardstick the port never calls), and K2 also at the
    other training cells' attention shapes (K2_CELL_SHAPES), timed beside
-   its bound and its first heads held against its plain version; K1, K2
+   its bound and its first heads held against its plain version, and K3
+   so at every training cell's (K3_CELL_SHAPES), into bf16 and f32 dq,
+   bit for bit the same on a second launch; K1, K2
    and K3 at latent attention's head dims (q and k 192, v 128) at small
    ragged shapes against their plain versions and timed at
    Moonlight-16B-A3B's attention (LATENT_SHAPE) beside their bounds and
@@ -137,6 +139,14 @@ LSE_TOL = 1e-3
 # are compared (the plain version of all of LFM2's would need some 70 GB).
 K2_CELL_SHAPES = {"lfm2-8b-a1b.train": (64, 8192, 64, 2),
                   "switch-base-8.train": (1536, 512, 64, 16)}
+# K3 timed at the attention of every training cell, causal bf16, the same
+# way: {cell: (hb, seq, q/k head dim, v head dim, heads held against the
+# plain version)}; Moonlight-16B-A3B's 2 x 16 heads over 8192 at latent
+# attention's head dims.
+K3_CELL_SHAPES = {"pythia-1.4b.train": (128, 2048, 128, 128, 8),
+                  "lfm2-8b-a1b.train": (64, 8192, 64, 64, 2),
+                  "switch-base-8.train": (1536, 512, 64, 64, 16),
+                  "moonlight-16b-a3b.train": (32, 8192, 192, 128, 2)}
 # K1-K3 at latent attention's head dims: (hb, seq, q/k head dim, v head
 # dim) of Moonlight-16B-A3B's training cell, 2 x 16 heads over 8192
 # (timed, and its first LATENT_HEADS heads held against the plain
@@ -687,6 +697,7 @@ def check_flash_bwd(torch, fa, dev):
             "checks": len(errs[name]),
         })
     entries[0]["at_cells"] = time_dkv_at_cells(torch, fa, dev, gen)
+    entries[1]["at_cells"] = time_dq_at_cells(torch, fa, dev, gen)
     return entries
 
 
@@ -723,6 +734,58 @@ def time_dkv_at_cells(torch, fa, dev, gen) -> list:
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"flash_bwd_dkv disagrees with its plain "
+                                 f"version at {cell}'s shape: {line}")
+    return lines
+
+
+def time_dq_at_cells(torch, fa, dev, gen) -> list:
+    """K3 at K3_CELL_SHAPES: timed beside its bound into bf16 dq (the
+    training path's), and its first heads held against the plain version
+    (`tol_ratio` <= 1). Also launched into f32 dq (the ring's instance),
+    held to the same bar, as the ring's f32 gradients are: its sums are
+    the bf16 instance's, so rounded to bf16 it must give that dq bit for
+    bit; and the bf16 dq must be bit for bit the same on a second
+    launch."""
+    lines = []
+    for cell, (hb, seq, d, dv, heads) in K3_CELL_SHAPES.items():
+        q, k = (torch.randn((hb, seq, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v, do = (torch.randn((hb, seq, dv), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, True, True)
+        di = (do.float() * o.float()).sum(-1)
+        dq, again = torch.empty_like(q), torch.empty_like(q)
+        dq32 = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        ms = _cuda_ms(torch, lambda: fa.launch_bwd(
+            q, k, v, do, lse, di, dq, None, None, scale, True), 10)
+        for out in (again, dq32):
+            fa.launch_bwd(q, k, v, do, lse, di, out, None, None, scale, True)
+        torch.cuda.synchronize()
+        args = (*(t[:heads] for t in (q, k, v, do, lse, di)), scale, True)
+        ref, term = fa.flash_bwd_dq_plain(*args), fa.rounding_terms_dq(*args)
+        err = _elem_err(dq[:heads], ref, "bfloat16", term)
+        err32 = _elem_err(dq32[:heads], ref, "bfloat16", term)
+        repeats = torch.equal(dq, again)
+        f32_rounds = torch.equal(dq32.to(torch.bfloat16), dq)
+        ok = (err["tol_ratio"] <= 1.0 and err32["tol_ratio"] <= 1.0
+              and repeats and f32_rounds and all(
+                  bool(torch.isfinite(t).all()) for t in (dq, dq32)))
+        bound_ms, bound_by, flops = latent_bounds(hb, seq, d,
+                                                  dv)["flash_bwd_dq"]
+        line = dict(kernel="flash_bwd_dq", cell=cell, hb=hb, seq=seq, d=d,
+                    dv=dv, dtype="bfloat16", causal=True, ms=ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    **_speed(ms, bound_ms, flops), checked_heads=heads,
+                    **err, f32_tol_ratio=err32["tol_ratio"],
+                    bit_for_bit_again=repeats, f32_rounds_to_bf16=f32_rounds,
+                    ok=ok)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del q, k, v, do, o, lse, di, dq, again, dq32, ref, term
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"flash_bwd_dq disagrees with its plain "
                                  f"version at {cell}'s shape: {line}")
     return lines
 

@@ -49,6 +49,11 @@ MUTATIONS = [
      "  const int num_k = (k_end + BK - 1) / BK;",
      "  const int num_k = (k_end + BK - 1) / BK - (causal && q0 > 0);",
      "check_flash_bwd"),
+    ("K3's turn multiplies the tile before's dS by this turn's K",
+     f"{CSRC}/flash_bwd.cu",
+     "        const uint64_t km = sm90::opaque(KT::mnmajor(sk0 + sp * KT::BYTES));",
+     "        const uint64_t km = sm90::opaque(KT::mnmajor(sk0 + s * KT::BYTES));",
+     "check_flash_bwd"),
     ("the ring treats past blocks as causal",
      "tpu_device_plugin_torch/validator/ring_attention.py",
      "    return src == index",
@@ -58,15 +63,25 @@ MUTATIONS = [
 
 # (name, source, line as it is, line as changed, chip_smoke check)
 VARIANTS = [
-    ("K3 with 128-key tiles",
+    ("K3 with 64-key tiles at head dims up to 64",
      f"{CSRC}/flash_bwd.cu",
-     "constexpr int DQ_BK = 64;               // key rows per streamed tile",
-     "constexpr int DQ_BK = 128;              // key rows per streamed tile",
+     "template <int DQK> constexpr int dq_bk() { return DQK <= 64 ? 128 : 64; }",
+     "template <int DQK> constexpr int dq_bk() { return 64; }",
      "check_flash_bwd"),
-    ("K3 with a three-stage K / V ring",
+    ("K3 with 32-key tiles at head dims (192, 128)",
      f"{CSRC}/flash_bwd.cu",
-     "constexpr int DQ_STAGES = 2;            // K / V ring depth",
+     "template <int DQK> constexpr int dq_bk() { return DQK <= 64 ? 128 : 64; }",
+     "template <int DQK> constexpr int dq_bk() { return DQK <= 64 ? 128 : DQK > 128 ? 32 : 64; }",
+     "check_flash_bwd"),
+    ("K3 with a two-stage K / V ring",
+     f"{CSRC}/flash_bwd.cu",
      "constexpr int DQ_STAGES = 3;            // K / V ring depth",
+     "constexpr int DQ_STAGES = 2;            // K / V ring depth",
+     "check_flash_bwd"),
+    ("K3 with a four-stage K / V ring where it fits (not at (192, 128))",
+     f"{CSRC}/flash_bwd.cu",
+     "  static constexpr int STAGES = DQ_STAGES;",
+     "  static constexpr int STAGES = DQK > 128 ? DQ_STAGES : 4;",
      "check_flash_bwd"),
     ("K2 with a two-stage Q / dO / lse / D ring",
      f"{CSRC}/flash_bwd.cu",

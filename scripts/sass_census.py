@@ -9,12 +9,15 @@ does at first use), then prints one JSON line per kernel instance: its
 mangled name, what `nvcc -Xptxas -v` said of it (registers, spill bytes,
 stack), and counts of chosen SASS instructions from `cuobjdump -sass`:
 HGMMA (wgmma on the tensor cores), UTMALDG (TMA loads), FFMA (scalar f32
-multiply-adds) and MUFU.EX2 (exponentials).
+multiply-adds) and MUFU.EX2 (exponentials), and `sass_sha256`, a hash of
+the instance's instructions (equal across two trees where the compiled
+code is the same).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import shutil
@@ -29,13 +32,18 @@ OPCODES = ("HGMMA", "UTMALDG", "FFMA", "MUFU.EX2")
 
 def ptxas_info(log: str) -> dict:
     """{mangled name: {registers, spill_stores, spill_loads, stack}} from
-    nvcc's -Xptxas -v output."""
+    nvcc's -Xptxas -v output, and `wgmma_serialized` where ptxas warned
+    that it serialized the function's wgmmas (C7512)."""
     info, name = {}, None
     for line in log.splitlines():
+        m = re.search(r"C7512.*function '(\S+)'", line)
+        if m:
+            info.setdefault(m.group(1), {})["wgmma_serialized"] = True
+            continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            info[name] = {}
+            info.setdefault(name, {})
             continue
         if name is None:
             continue
@@ -52,26 +60,31 @@ def ptxas_info(log: str) -> dict:
 
 
 def sass_counts(lib: Path) -> dict:
-    """{mangled name: {opcode: count}} from cuobjdump -sass."""
+    """{mangled name: {opcode: count, "sass_sha256": hash}} from
+    cuobjdump -sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts, hashes, name = {}, {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
             counts[name] = dict.fromkeys(OPCODES, 0)
+            hashes[name] = hashlib.sha256()
             continue
         if name is None:
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                       line)
         if m:
+            hashes[name].update(line.strip().encode())
             op = m.group(1)
             for want in OPCODES:
                 if op == want or op.startswith(want + "."):
                     counts[name][want] += 1
+    for name, h in hashes.items():
+        counts[name]["sass_sha256"] = h.hexdigest()[:16]
     return counts
 
 

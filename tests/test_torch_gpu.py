@@ -180,6 +180,40 @@ def test_dkv_kernel_at_the_cells_shapes(cuda_device, hb, seq, d, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [1, 37, 100, 130, 320, 1000])
+@pytest.mark.parametrize("d,dv", [(16, 16), (64, 64), (128, 128), (192, 128)])
+def test_dq_kernel_turns_at_the_edges(cuda_device, d, dv, seq, causal):
+    """K3 alone where its warpgroups' turns meet the edges: one key, seq
+    below one query block and not a multiple of the key tile (a single
+    query tile), a second block whose upper warpgroup holds no row, seq a
+    multiple of 64 but not of 128; at each head-dim pair, causal and not.
+    dq into bf16 against the plain version and bit for bit the same on a
+    second launch; into f32 against the plain version, and rounded to bf16
+    bit for bit the bf16 dq (the same sums, another store)."""
+    q, k = inputs(2, seq, d, "bfloat16", cuda_device, seed=seq + d, n=2)
+    v, do = inputs(2, seq, dv, "bfloat16", cuda_device, seed=seq + dv + 1,
+                   n=2)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal, True)
+    di = (do.float() * o.float()).sum(-1)
+    runs = [torch.empty_like(q), torch.empty_like(q),
+            torch.empty(q.shape, dtype=torch.float32, device=cuda_device)]
+    before = dict(fa.launches)
+    for dq in runs:
+        fa.launch_bwd(q, k, v, do, lse, di, dq, None, None, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == dict(before, flash_bwd_dq=before["flash_bwd_dq"] + 3)
+    ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, di, scale, causal)
+    term = fa.rounding_terms_dq(q, k, v, do, lse, di, scale, causal)
+    for dq, dt in zip(runs[::2], ("bfloat16", "float32")):
+        assert torch.isfinite(dq).all(), dt
+        assert grad_close(dq, ref, dt, term), dt
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[2].to(torch.bfloat16), runs[0])
+
+
+@pytest.mark.gpu
 def test_backward_kernels_f32_out_and_one_pass_alone(cuda_device):
     """out_dtype f32 from bf16 inputs, and K2 / K3 launched alone."""
     q, k, v, do = inputs(2, 200, 64, "bfloat16", cuda_device, seed=1, n=4)

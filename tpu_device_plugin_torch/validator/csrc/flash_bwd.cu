@@ -64,21 +64,37 @@
 // needs.
 // - One block per (128-row query tile, hb), heavy tiles first: two
 //   consumer warpgroups of 64 query rows each, with Q and dO resident in
-//   shared memory, and one producer thread that streams 64-row K and V
-//   tiles by TMA through a two-stage mbarrier ring, from key tile 0 up to
-//   the diagonal when causal. Each consumer thread holds the lse (log2
-//   units) and D of its two rows in registers for the whole loop, and dQ
-//   in f32 registers (64 per thread at d 128); setmaxnreg gives the
-//   consumers 240.
-// - S = Q K^T and dP = dO V^T are wgmma SS products, issued as one group;
-//   P = exp(S scale - lse) and dS = P (dP - D) scale run on the
-//   accumulator fragments; dS, scaled, is rounded to bf16 in registers, as
-//   the JAX kernel rounds it (:262), and is the A operand of the RS
-//   product dQ += dS K, with K read MN-major from the bytes S read K-major.
-//   `flash_bwd_dq_plain` rounds the same dS.
-// - Only tiles that cross the diagonal or `seq` are masked; warpgroup 0
-//   skips the products of a causal block's last key tile, which lies
-//   wholly above its rows.
+//   shared memory, and one producer thread that streams K and V tiles by
+//   TMA through a three-stage mbarrier ring, from key tile 0 up to the
+//   diagonal when causal. Each consumer thread holds the lse (log2 units)
+//   and D of its two rows in registers for the whole loop, and dQ in f32
+//   registers (64 per thread at d 128); setmaxnreg gives the consumers
+//   240.
+// - S = Q K^T and dP = dO V^T are wgmma SS products; P = exp(S scale -
+//   lse) and dS = P (dP - D) scale run on the accumulator fragments; dS,
+//   scaled, is rounded to bf16 in registers, as the JAX kernel rounds it
+//   (:262), and is the A operand of the RS product dQ += dS K, with K read
+//   MN-major from the bytes S read K-major. `flash_bwd_dq_plain` rounds
+//   the same dS.
+// - What bounds it: the three products take 6 d FLOPs a pair on the
+//   tensor cores, P and dS about ten instructions a pair on the CUDA
+//   cores. So the warpgroups take turns on the tensor cores, as K2's do:
+//   a turn issues the RS product of the last tile, waits for it, issues
+//   the SS pair of the next, hands the tensor cores to the other
+//   warpgroup, and computes the next tile's P and dS while the other's
+//   products run. The dS fragments are never live beside S and dP, so the
+//   key tile is as wide as dQ's registers allow: 128 keys at head dims up
+//   to 64 (dQ, S and dP 32 + 64 + 64 registers), 64 at 128 and at (192,
+//   128) (64 + 32 + 32, 96 + 32 + 32). Run in turn within one warpgroup
+//   (the first design), each side waited on the other: K3 took 0.76 ms at
+//   Pythia-1.4B's attention (hb 128, seq 2048, d 128) against 0.42 now
+//   (H100 at 700 W), with dQ bit for bit the same (the same k-steps in
+//   the same key order, whatever the tile width).
+// - Only tiles that cross the diagonal or `seq` are masked (P and dS
+//   chosen at compile time); warpgroup 0 skips the products of a causal
+//   block's last 64 / BK key tiles, which lie wholly above its rows.
+// - Each warpgroup adds its key tiles in order: dQ is deterministic, with
+//   no atomics.
 //
 // Latent attention (MLA) at head dims (192, 128): q, k, dq and dk have
 // the query/key head dim (192), v, dO and dv the value head dim (128); K2
@@ -97,12 +113,13 @@
 //   three, each of warpgroup 1's tiles was loaded only as its turn came,
 //   and K2 took 2.77 ms against 2.59-2.61 skipping one tile (a masked
 //   turn of zeros); with four, 2.53-2.59 (H100 at 700 W, median of five).
-// - K3 streams 32 key rows a tile (DQ_BK_WIDE) for the same reason: at 64
-//   ptxas serialized its wgmmas and spilled 268 bytes (4.93 ms against
-//   3.78); at 32 it keeps 4 bytes of spill stores outside the products.
+// - K3 streams 64 key rows a tile there: dQ, S and dP take 96 + 32 + 32
+//   registers and nothing spills. Before the turns, dS's fragments were
+//   live beside S and dP, and at 64 rows ptxas serialized the wgmmas and
+//   spilled 268 bytes (4.93 ms against 3.78 at 32 rows).
 // - Shared memory: K2 resident K and V 48 + 32 KB, four stages of Q and
-//   dO 12 + 8 KB; K3 resident Q and dO 48 + 32 KB, two stages of K and V
-//   12 + 8 KB.
+//   dO 12 + 8 KB; K3 resident Q and dO 48 + 32 KB, three stages of K and V
+//   24 + 16 KB.
 //
 // K2 and K3 for f32 inputs: the first, scalar design, exact: f32 tiles in
 // shared memory, scalar f32 FMAs, 4 x 4 register tiles per thread. On the
@@ -123,7 +140,7 @@
 //   template parameter, so the stores do not branch), so the ring path's
 //   f32 partials from bf16 inputs need no other kernel (:277-280).
 // - At d = 128 the scalar K2's tiles take 170 KB and K3's 153 KB of shared
-//   memory, the tensor-core K2's and K3's 163 and 129 KB (bf16): dynamic
+//   memory, the tensor-core K2's and K3's 163 and 161 KB (bf16): dynamic
 //   shared memory, raised with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
@@ -523,20 +540,21 @@ __device__ __forceinline__ void dkv_p_ds(uint32_t (&pa)[BQ / 16][4],
   }
 }
 
-// acc = A B^T over D (SS, both K-major): A the warpgroup's 64 rows of the
-// resident K or V tile (`a`, its descriptor), B a streamed Q or dO tile of
-// BQ rows
-template <int D, int BQ>
-__device__ __forceinline__ void dkv_scores(float (&acc)[BQ / 2], uint64_t a,
-                                           int wg, const uint8_t* b_tile) {
-  using KT = sm90::Tile<TC_BK, D>;
-  using QT = sm90::Tile<BQ, D>;
+// acc = A B^T over D (SS, both K-major), one committed group: A the
+// warpgroup's 64 rows of a resident 128-row tile (`a`, its descriptor: K
+// or V in K2, Q or dO in K3), B a streamed tile of N rows (Q or dO in K2,
+// K or V in K3)
+template <int D, int N>
+__device__ __forceinline__ void tile_scores(float (&acc)[N / 2], uint64_t a,
+                                            int wg, const uint8_t* b_tile) {
+  using TA = sm90::Tile<TC_BK, D>;
+  using TB = sm90::Tile<N, D>;
   const uint64_t ad = sm90::opaque(a);
-  const uint64_t bd = sm90::opaque(QT::kmajor(b_tile));
+  const uint64_t bd = sm90::opaque(TB::kmajor(b_tile));
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    sm90::Wgmma<BQ>::ss(acc, KT::kmajor_at(ad, 64 * wg, kk),
-                        QT::kmajor_at(bd, 0, kk), kk > 0);
+    sm90::Wgmma<N>::ss(acc, TA::kmajor_at(ad, 64 * wg, kk),
+                       TB::kmajor_at(bd, 0, kk), kk > 0);
   sm90::wgmma_commit();
 }
 
@@ -696,8 +714,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
         // S^T and dP^T of tile i; the tensor cores go to the other
         // warpgroup while P and dS are made from them
         float st[BQ / 2], dpt[BQ / 2];
-        dkv_scores<DQK, BQ>(st, k_desc, cw, sq0 + s * QT::BYTES);
-        dkv_scores<DV, BQ>(dpt, v_desc, cw, sdo0 + s * OT::BYTES);
+        tile_scores<DQK, BQ>(st, k_desc, cw, sq0 + s * QT::BYTES);
+        tile_scores<DV, BQ>(dpt, v_desc, cw, sdo0 + s * OT::BYTES);
         if (p < handovers) sm90::bar_arrive(TC_TURN + 1 - cw, 256);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(st);
@@ -764,28 +782,70 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
 // --- K3 for bf16 inputs: the tensor-core kernel -------------------------
 
 constexpr int DQ_BQ = 128;              // query rows per block: 64 per consumer warpgroup
-constexpr int DQ_BK = 64;               // key rows per streamed tile
-constexpr int DQ_BK_WIDE = 32;          // DQ_BK at query/key head dim 192
-constexpr int DQ_STAGES = 2;            // K / V ring depth
+constexpr int DQ_STAGES = 3;            // K / V ring depth
 
-// Key rows per streamed tile of K3 at head dims (DQK, DV): DQ_BK, or
-// DQ_BK_WIDE at DQK 192, where dQ's accumulator is 1.5 times d 128's (the
-// header says why).
-template <int DQK> constexpr int dq_bk() { return DQK > 128 ? DQ_BK_WIDE : DQ_BK; }
+// Key rows per streamed tile of K3 at query/key head dim DQK (the header
+// says why each)
+template <int DQK> constexpr int dq_bk() { return DQK <= 64 ? 128 : 64; }
 
 template <int DQK, int DV> struct DqSmem {
   static constexpr int BK = dq_bk<DQK>();
+  static constexpr int STAGES = DQ_STAGES;
   using QT = sm90::Tile<DQ_BQ, DQK>;     // Q, resident
   using OT = sm90::Tile<DQ_BQ, DV>;      // dO, resident
-  using KT = sm90::Tile<BK, DQK>;     // K, streamed
-  using VT = sm90::Tile<BK, DV>;      // V, streamed
+  using KT = sm90::Tile<BK, DQK>;        // K, streamed
+  using VT = sm90::Tile<BK, DV>;         // V, streamed
   static constexpr int DO_OFF = QT::BYTES;
   static constexpr int K_OFF = QT::BYTES + OT::BYTES;
-  static constexpr int V_OFF = K_OFF + DQ_STAGES * KT::BYTES;
-  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * VT::BYTES;
-  // q_full, full[DQ_STAGES], empty[DQ_STAGES]
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + sm90::SMEM_ALIGN;
+  static constexpr int V_OFF = K_OFF + STAGES * KT::BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * VT::BYTES;
+  // q_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + sm90::SMEM_ALIGN;
+  static_assert(BYTES <= 232448, "K3's tiles exceed a block's shared memory");
+  // causal, warpgroup 0 never releases the last 64 / BK tiles' stages: no
+  // load may wait on them (see the kernel)
+  static_assert(64 / BK <= STAGES, "K3's ring is shallower than the skip");
 };
+static_assert(DQ_BQ == TC_BK, "K3's resident tiles take tile_scores' A rows");
+
+// P = exp(S scale - lse) and dS = P (dP - D) scale on one warpgroup's 64
+// queries x BK keys, dS from the f32 P and scaled before it is rounded, as
+// in the JAX kernel, each pair rounded to a bf16 A fragment as soon as it
+// is made. lse (log2 units) and D are the thread's two rows, in
+// registers. With EDGE (tiles on the diagonal or at `seq`) dS is 0
+// outside the valid region; other tiles need no test.
+template <bool EDGE, int BK>
+__device__ __forceinline__ void dq_ds(uint32_t (&da)[BK / 16][4],
+                                      const float (&sc)[BK / 2],
+                                      const float (&dp)[BK / 2],
+                                      const float (&lse2)[2],
+                                      const float (&drow)[2], int l, int r0,
+                                      int k0, int seq, int causal,
+                                      float scale_log2, float scale) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      // accumulator index i = 8 kk + 2 c + x = 4 j + e: row r0 + 8 (c % 2),
+      // key 8 j + 2 (l % 4) + x, j = 2 kk + c / 2
+      float ds2[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = 8 * kk + 2 * c + x, h = c % 2;
+        if constexpr (EDGE) {
+          const int key = k0 + 8 * (2 * kk + c / 2) + 2 * (l % 4) + x;
+          const int row = r0 + 8 * h;
+          const bool ok = row < seq && key < seq && (!causal || key <= row);
+          const float p = ok ? exp2f(sc[i] * scale_log2 - lse2[h]) : 0.f;
+          ds2[x] = ok ? p * (dp[i] - drow[h]) * scale : 0.f;
+        } else {
+          const float p = exp2f(sc[i] * scale_log2 - lse2[h]);
+          ds2[x] = p * (dp[i] - drow[h]) * scale;
+        }
+      }
+      da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
+    }
+}
 
 template <typename O, int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -801,12 +861,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   using OT = typename L::OT;
   using KT = typename L::KT;
   using VT = typename L::VT;
-  constexpr int BK = L::BK;
+  constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::aligned_smem(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* empty = full + STAGES;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;   // heavy tiles first
   const int hb = blockIdx.y;
@@ -816,7 +876,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], TC_CONSUMER_WARPS);
     }
@@ -835,8 +895,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
         sm90::tma_load_3d(smem + L::DO_OFF + b * OT::BOX_BYTES, &mdo, q_full,
                           b * OT::W, q0, hb);
       for (int kt = 0; kt < num_k; ++kt) {
-        const int s = kt % DQ_STAGES;
-        sm90::mbar_wait(&empty[s], ((kt / DQ_STAGES) & 1) ^ 1);
+        const int s = kt % STAGES;
+        sm90::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&full[s], KT::BYTES + VT::BYTES);
         uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
         uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
@@ -849,11 +909,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
   } else {
-    // consumers: warpgroup wg owns query rows [q_lo, q_lo + 64); this
-    // thread rows r0 and r0 + 8 (the accumulator layout, sm90.cuh)
+    // consumers: warpgroup cw owns query rows [q_lo, q_lo + 64); this
+    // thread rows r0 and r0 + 8 (the accumulator layout, sm90.cuh). cw is
+    // wg made warp-uniform (a broadcast), so that ptxas sees every branch
+    // below as uniform and keeps the wgmmas asynchronous.
     sm90::regs_alloc<240>();
+    const int cw = __shfl_sync(0xffffffffu, wg, 0);
     const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
-    const int q_lo = q0 + 64 * wg;
+    const int q_lo = q0 + 64 * cw;
     const int r0 = q_lo + 16 * w + l / 4;
     const float scale_log2 = scale * LOG2E;
     float lse2[2], drow[2];   // lse in log2 units, and D, of rows r0, r0 + 8
@@ -867,80 +930,73 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     float adq[DQK / 2];
 #pragma unroll
     for (int i = 0; i < DQK / 2; ++i) adq[i] = 0.f;
+    uint32_t da[BK / 16][4];
 
+    // Causal, the last 64 / BK key tiles (keys q0 + 64 on) lie wholly
+    // above warpgroup 0's rows: it takes the m0 tiles before them, and
+    // leaves their stages unreleased, which no load waits on (the ring is
+    // at least that deep). Each warpgroup takes one turn on the tensor
+    // cores per tile it takes, and one more. Turn p issues the product of
+    // the tile before (dQ += dS K), waits for it and releases its stage,
+    // issues the scores of tile p (S, dP), hands the tensor cores to the
+    // other warpgroup, and computes that tile's P and dS while the other's
+    // products run. The dS fragments are never live beside S and dP. The
+    // turns alternate, warpgroup 0's first, while both have turns left
+    // (m0 + 1 of them); warpgroup 1 takes the rest alone.
+    const int m0 = causal ? min(num_k, (q0 + 64 + BK - 1) / BK) : num_k;
+    const int m = cw == 0 ? m0 : num_k;                  // tiles taken
+    const int handovers = cw == 0 ? m0 + 1 : m0;
     const uint64_t q_desc = QT::kmajor(smem);
     const uint64_t do_desc = OT::kmajor(smem + L::DO_OFF);
+    const uint8_t* sk0 = smem + L::K_OFF;
+    const uint8_t* sv0 = smem + L::V_OFF;
     sm90::mbar_wait(q_full, 0);
-    for (int kt = 0; kt < num_k; ++kt) {
-      const int s = kt % DQ_STAGES, k0 = kt * BK;
-      const uint8_t* sk = smem + L::K_OFF + s * KT::BYTES;
-      const uint8_t* sv = smem + L::V_OFF + s * VT::BYTES;
-      sm90::mbar_wait(&full[s], (kt / DQ_STAGES) & 1);
-      if (causal && k0 >= q_lo + 64) {
-        // wholly above this warpgroup's rows: nothing to add, but the
-        // producer waits for every consumer warp to release the stage
-        if (l == 0) sm90::mbar_arrive(&empty[s]);
-        continue;
+    __syncwarp();   // converged for the aligned barrier instructions
+    if (cw == 1) sm90::bar_arrive(TC_TURN + 0, 256);    // warpgroup 0 first
+
+    for (int p = 0; p <= m; ++p) {
+      const int s = p % STAGES, sp = (p + STAGES - 1) % STAGES;
+      if (p <= m0) sm90::bar_sync(TC_TURN + cw, 256);
+      if (p < m) sm90::mbar_wait(&full[s], (p / STAGES) & 1);
+      sm90::wgmma_fence();
+      if (p > 0) {
+        // dQ += dS K of the tile before (RS, K read MN-major from the
+        // bytes S read K-major); once done, its stage goes back
+        const uint64_t km = sm90::opaque(KT::mnmajor(sk0 + sp * KT::BYTES));
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          sm90::Wgmma<DQK>::rs(adq, da[kk], KT::mnmajor_at(km, kk), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(adq);
+        sm90::fence_regs(da);
+        if (l == 0) sm90::mbar_arrive(&empty[sp]);
+        __syncwarp();   // converged for the aligned instructions below
+        sm90::wgmma_fence();
       }
-
-      // S = Q K^T and dP = dO V^T over this warpgroup's 64 rows and the
-      // tile's keys, both SS, one group
-      const uint64_t qd = sm90::opaque(q_desc), dod = sm90::opaque(do_desc);
-      const uint64_t kd = sm90::opaque(KT::kmajor(sk));
-      const uint64_t vd = sm90::opaque(VT::kmajor(sv));
-      float sc[BK / 2], dp[BK / 2];
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sc[j] = dp[j] = 0.f;
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk)
-        sm90::Wgmma<BK>::ss(sc, QT::kmajor_at(qd, 64 * wg, kk),
-                               KT::kmajor_at(kd, 0, kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk)
-        sm90::Wgmma<BK>::ss(dp, OT::kmajor_at(dod, 64 * wg, kk),
-                               VT::kmajor_at(vd, 0, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(sc);
-      sm90::fence_regs(dp);
-
-      // P = exp(S scale - lse) and dS = P (dP - D) scale, from the f32 P
-      // and scaled before it is rounded, as in the JAX kernel; 0 outside
-      // the valid region, which only tiles on the diagonal or at `seq`
-      // need. Each dS pair goes to a bf16 A fragment as soon as it is made.
-      const bool edge = (causal && k0 + BK - 1 > q_lo) || k0 + BK > seq ||
-                        q_lo + 64 > seq;
-      uint32_t da[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float ds2[2];
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int i = 8 * kk + 2 * c + x;   // accumulator index 4j + e
-            const int e = i % 4, h = e >> 1;
-            const int key = k0 + 8 * (i / 4) + 2 * (l % 4) + (e & 1);
-            const int row = r0 + 8 * h;
-            const bool ok = !edge || (row < seq && key < seq && (!causal || key <= row));
-            const float p = ok ? exp2f(sc[i] * scale_log2 - lse2[h]) : 0.f;
-            ds2[x] = ok ? p * (dp[i] - drow[h]) * scale : 0.f;
-          }
-          da[kk][c] = sm90::pack_bf16(ds2[0], ds2[1]);
-        }
-
-      // dQ += dS K (RS, K read MN-major)
-      const uint64_t km = sm90::opaque(KT::mnmajor(sk));
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        sm90::Wgmma<DQK>::rs(adq, da[kk], KT::mnmajor_at(km, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(adq);
-      sm90::fence_regs(da);
-      if (l == 0) sm90::mbar_arrive(&empty[s]);
+      if (p < m) {
+        // S = Q K^T and dP = dO V^T of tile p over this warpgroup's 64
+        // rows; the tensor cores go to the other warpgroup while P and dS
+        // are made from them
+        float sc[BK / 2], dp[BK / 2];
+        tile_scores<DQK, BK>(sc, q_desc, cw, sk0 + s * KT::BYTES);
+        tile_scores<DV, BK>(dp, do_desc, cw, sv0 + s * VT::BYTES);
+        if (p < handovers) sm90::bar_arrive(TC_TURN + 1 - cw, 256);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dp);
+        const int k0 = p * BK;
+        const bool edge = (causal && k0 + BK - 1 > q_lo) || k0 + BK > seq ||
+                          q_lo + 64 > seq;
+        if (edge)
+          dq_ds<true, BK>(da, sc, dp, lse2, drow, l, r0, k0, seq, causal,
+                          scale_log2, scale);
+        else
+          dq_ds<false, BK>(da, sc, dp, lse2, drow, l, r0, k0, seq, causal,
+                           scale_log2, scale);
+      } else if (p < handovers) {
+        sm90::bar_arrive(TC_TURN + 1 - cw, 256);
+      }
     }
 
 #pragma unroll

@@ -48,7 +48,7 @@ KEY_BLOCK = 128
 # the only ones the benches can select: K1 runs 128-query blocks over
 # 128-key tiles; in the JAX kernels' naming of one backward pair, K3 holds
 # 128 queries per block and K2 128 keys per block (each streams the other
-# side in tiles of 64: TC_BQ and DQ_BK in csrc/flash_bwd.cu).
+# side in tiles of its own: TC_BQ and dq_bk in csrc/flash_bwd.cu).
 FWD_BLOCK = (128, KEY_BLOCK)
 BWD_BLOCK = (128, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
