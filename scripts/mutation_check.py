@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Shows that chip_smoke.py's kernel checks fail a kernel that is wrong.
 
-    python3 scripts/mutation_check.py [--out DIR] [--variants]
+    python3 scripts/mutation_check.py [--out DIR] [--variants] [--match S]
 
 Run from the repository root on a machine with a CUDA card. For each
 mutation below it copies tpu_device_plugin_torch/ into a fresh directory
@@ -54,6 +54,16 @@ MUTATIONS = [
      "        const uint64_t km = sm90::opaque(KT::mnmajor(sk0 + sp * KT::BYTES));",
      "        const uint64_t km = sm90::opaque(KT::mnmajor(sk0 + s * KT::BYTES));",
      "check_flash_bwd"),
+    ("S1 passes the state between chunks without its decay",
+     f"{CSRC}/ssd.cu",
+     "    const float decay = expf(cum_end);",
+     "    const float decay = 1.f;",
+     "check_ssd"),
+    ("S1 leaves D's skip out of y",
+     f"{CSRC}/ssd.cu",
+     "                pack_f32(acc[0][j][2 * half] + dh * x0,",
+     "                pack_f32(acc[0][j][2 * half],",
+     "check_ssd"),
     ("the ring treats past blocks as causal",
      "tpu_device_plugin_torch/validator/ring_attention.py",
      "    return src == index",
@@ -147,6 +157,8 @@ def main() -> int:
                     help="directory for the changed copies")
     ap.add_argument("--variants", action="store_true",
                     help="time the variants instead of catching mutations")
+    ap.add_argument("--match", default="",
+                    help="only the mutations whose name holds this")
     args = ap.parse_args()
     out_dir = args.out or Path(tempfile.mkdtemp(prefix="mutation-check-"))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -156,7 +168,7 @@ def main() -> int:
         results = [run(*v, out_dir) for v in (as_is, *VARIANTS, as_is)]
         ok = all(r["exit"] == 0 for r in results)
     else:
-        results = [run(*m, out_dir) for m in MUTATIONS]
+        results = [run(*m, out_dir) for m in MUTATIONS if args.match in m[0]]
         ok = all(r["caught"] for r in results)
     for r in results:
         print(json.dumps(r), flush=True)

@@ -37,6 +37,19 @@ kernel is held against its plain PyTorch version on the same inputs:
   `short_conv.dw_sum_depth(b, s)` 2^-24 of the sum of their absolute
   values from their exact (f64) sum: the most additions any term passes
   through in the kernels' order.
+- conv_silu_fwd, conv_silu_bwd (C1's ungated mode, Mamba-2's convolution):
+  the same f32 sum in the same order as the plain version, but fused
+  multiply-adds against PyTorch's products and sums, and the SiLU's exp
+  another. Where the sum nearly cancels, silu keeps its absolute error
+  (some 5 roundings of 2^-24 of its terms' magnitudes), so y within one
+  bf16 ulp plus CONV_SILU_SUM_TOL of the sum of |w_j x_j| and |bias|, dx
+  likewise of the sum of |g w_j| (with the error the sum's own carries
+  into g), the taps' and the bias's f32 gradients
+  within CONV_SILU_DW_TOL of the largest.
+- ssd_fwd, ssd_bwd (S1, Mamba-2's chunked scan): each output's largest
+  |d| over the plain version's largest within SSD_TOL, chip_smoke.py's
+  bars (about twice what the cell's one layer reads on an H100), the
+  gradients bit for bit the same on a second run.
 """
 
 from unittest import mock
@@ -46,7 +59,7 @@ import pytest
 import torch
 
 from tpu_device_plugin_torch.validator import flash_attention as fa
-from tpu_device_plugin_torch.validator import (short_conv, tracing,
+from tpu_device_plugin_torch.validator import (short_conv, ssd, tracing,
                                                workload, xent)
 
 LSE_TOL = 1e-3
@@ -66,6 +79,18 @@ XENT_SHAPES = [(2, 64, 63, 32128), (2, 32, 31, 50304), (3, 40, 39, 1001),
 # (b, s, d): s ragged against the kernels' tiles of 64 tokens, b > 1; one
 # token; LFM2's width over three tiles and a part
 CONV_SHAPES = [(2, 200, 136), (3, 37, 64), (1, 1, 8), (2, 197, 2048)]
+# (b, s, D, row stride): x read in place in wider rows, ragged against the
+# tiles; one token; Granite's xBC in its projection's rows, one tile long
+CONV_SILU_SHAPES = [(2, 200, 136, 200), (3, 37, 64, 64), (1, 1, 8, 16),
+                    (2, 64, 8448, 16768)]
+CONV_SILU_DW_TOL = 1e-5
+CONV_SILU_SUM_TOL = 2 ** -21
+# (b, s, heads, groups) at head dim 64, state 128: one token, ragged
+# against the chunks of 64, two groups; the cell's one layer
+SSD_SHAPES = [(1, 1, 4, 2), (2, 200, 4, 1), (1, 1000, 8, 2),
+              (2, 8192, 128, 1)]
+SSD_TOL = {"y": 4e-3, "dx": 2e-2, "ddt": 1e-2, "da": 2e-2, "dB": 1e-2,
+           "dC": 1e-2, "dD": 1e-4}
 
 
 @pytest.fixture
@@ -798,3 +823,173 @@ def test_conv_counts_its_launches_and_rows_and_raises_on_bad_input(
     with pytest.raises(ValueError, match="contiguous"):
         short_conv.gated_conv(torch.cat([bch, bch], -1)[..., :3 * 64], w)
     assert short_conv.launches == {k: n + 1 for k, n in before.items()}
+
+
+def _conv_silu_inputs(b, s, d, stride, device, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+    rows = torch.randn((b, s, stride), generator=gen, device=device
+                       ).to(torch.bfloat16)
+    x = rows[..., stride - d:]
+    w = 0.5 * torch.randn((4, d), generator=gen, device=device)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=device)
+    dy = torch.randn((b, s, d), generator=gen, device=device
+                     ).to(torch.bfloat16)
+    return x, w, bias, dy
+
+
+def _conv_silu_bars(x, w, bias, dy):
+    """The sum of |w_j x_j| and |bias| of each output of the ungated
+    convolution, and of |g w_j| of each input's gradient (|g| = |dy|
+    (|silu'(sum)| + the sum's magnitude), 0 past the sequence), times
+    CONV_SILU_SUM_TOL."""
+    s, taps = x.shape[1], w.shape[0]
+
+    def causal(values, weights):
+        acc = values * weights[taps - 1]
+        for j in range(taps - 1):
+            shift = taps - 1 - j
+            if shift < s:
+                acc[:, shift:] += values[:, :s - shift] * weights[j]
+        return acc
+
+    total = causal(x.float(), w) + bias
+    sig = torch.sigmoid(total)
+    sums = causal(x.float().abs(), w.abs()) + bias.abs()
+    # |g| and the error that the sum's own carries into g (|silu''| < 1)
+    g = dy.float().abs() * ((sig * (1 + total * (1 - sig))).abs() + sums)
+    grad = g * w[taps - 1].abs()
+    for j in range(taps - 1):
+        shift = taps - 1 - j
+        if shift < s:
+            grad[:, :s - shift] += g[:, shift:] * w[j].abs()
+    return CONV_SILU_SUM_TOL * sums, CONV_SILU_SUM_TOL * grad
+
+
+def within_one_ulp_and(out, ref, extra) -> bool:
+    """Every bf16 element within one bf16 ulp of |ref| plus `extra`."""
+    ref = ref.float()
+    mag = ref.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((out.float() - ref).abs() <= ulp + extra).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CONV_SILU_SHAPES,
+                         ids=["x".join(map(str, s)) for s in CONV_SILU_SHAPES])
+def test_conv_silu_kernels_match_plain(cuda_device, shape):
+    x, w, bias, dy = _conv_silu_inputs(*shape, cuda_device)
+    y = short_conv.conv_silu_fwd(x, w, bias)
+    dx, dw, db = short_conv.conv_silu_bwd(x, w, bias, dy)
+    again = short_conv.conv_silu_bwd(x, w, bias, dy)
+    leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+    ref = short_conv.conv_silu_plain(*leaves)
+    ref.backward(dy)
+    y_bar, dx_bar = _conv_silu_bars(x, w, bias, dy)
+    assert within_one_ulp_and(y, ref.detach(), y_bar)
+    assert within_one_ulp_and(dx, leaves[0].grad, dx_bar)
+    assert rel_err(dw, leaves[1].grad) <= CONV_SILU_DW_TOL
+    assert rel_err(db, leaves[2].grad) <= CONV_SILU_DW_TOL
+    assert all(torch.equal(u, v) for u, v in zip((dx, dw, db), again))
+
+
+@pytest.mark.gpu
+def test_conv_silu_counts_its_launches_and_leaves_the_gated_counts(
+        cuda_device):
+    x, w, bias, dy = _conv_silu_inputs(2, 37, 64, 96, cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (w, bias)]
+    before, gated = dict(short_conv.ungated_launches), dict(
+        short_conv.launches)
+    short_conv.conv_silu(x, *leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert short_conv.ungated_launches == {k: n + 1
+                                           for k, n in before.items()}
+    assert short_conv.launches == gated
+    with pytest.raises(ValueError, match="take K in"):
+        short_conv.conv_silu(x, w[:3], bias)
+
+
+def _ssd_inputs(b, s, heads, groups, device, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+    p, n = ssd.KERNEL_HEAD_DIM, ssd.KERNEL_STATE
+    xbc = torch.randn((b, s, heads * p + 2 * groups * n), generator=gen,
+                      device=device).to(torch.bfloat16)
+    x, B, C = xbc.split([heads * p, groups * n, groups * n], -1)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, heads), generator=gen, device=device) - 4.6)
+    a = -torch.exp(1.386 + 0.5 * torch.randn(heads, generator=gen,
+                                              device=device))
+    D = 1 + 0.1 * torch.randn(heads, generator=gen, device=device)
+    dy = torch.randn((b, s, heads, p), generator=gen, device=device
+                     ).to(torch.bfloat16)
+    return (x.view(b, s, heads, p), dt, a, B.view(b, s, groups, n),
+            C.view(b, s, groups, n), D), dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SSD_SHAPES])
+def test_ssd_kernels_match_plain(cuda_device, shape):
+    inputs, dy = _ssd_inputs(*shape, cuda_device)
+    y, states = ssd.ssd_fwd(*inputs, True)
+    grads = ssd.ssd_bwd(*inputs, states, dy)
+    again = ssd.ssd_bwd(*inputs, states, dy)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    ref = ssd.ssd_plain(leaves[0].bfloat16(), leaves[1], leaves[2],
+                        leaves[3].bfloat16(), leaves[4].bfloat16(),
+                        leaves[5])
+    ref.backward(dy)
+    refs = (ref.detach(), *(t.grad for t in leaves))
+    for name, out, r in zip(SSD_TOL, (y, *grads), refs):
+        assert out.shape == r.shape, name
+        # at one token a's gradient is 0 on both sides (S_-1 = 0)
+        scale = r.float().abs().max().clamp(min=1e-30)
+        assert (out.float() - r.float()).abs().max() <= SSD_TOL[name] * scale, \
+            name
+
+
+@pytest.mark.gpu
+def test_ssd_saves_states_only_under_autograd_and_counts_its_launches(
+        cuda_device):
+    inputs, dy = _ssd_inputs(2, 130, 4, 1, cuda_device)
+    before = dict(ssd.launches)
+    with torch.no_grad():
+        y = ssd.ssd(*inputs)
+    leaves = [inputs[0], *(t.detach().requires_grad_() for t in inputs[1:])]
+    ssd.ssd(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert ssd.launches == {"ssd_fwd": before["ssd_fwd"] + 2,
+                            "ssd_bwd": before["ssd_bwd"] + 1}
+    assert torch.equal(y, ssd.ssd_fwd(*inputs, False)[0])
+    with pytest.raises(ValueError, match="head dim"):
+        ssd.ssd(inputs[0][..., :32], *inputs[1:])
+
+
+@pytest.mark.gpu
+def test_granite_block_on_card_matches_the_reference(cuda_device):
+    """The tiny Granite block (tests/torch_granite_tiny.py) at the widths S1
+    takes (head dim 64, state 128) through S1, C1's ungated mode, K1-K3
+    and `torch._grouped_mm` on the card against the definition's f32
+    reference there (TF32 off), following the port's routes: the CPU
+    test's bounds, which the fp8 control fails; `mamba.scan_rows` b s
+    heads a Mamba layer."""
+    import torch_granite_tiny as tiny
+    model = dict(tiny.MODEL, mamba_heads=2, mamba_head_dim=64,
+                 mamba_state=128, mamba_groups=1)
+    params, tokens = tiny.inputs(2 ** 31 + 23, cuda_device, model)
+    before = {**ssd.launches, **short_conv.ungated_launches}
+    with tracing.recording() as rec:
+        loss, grad, new, routes = tiny.port_step(workload, params, tokens,
+                                                 "flash", model)
+    mamba = model["layer_types"].count("mamba")
+    assert {**ssd.launches, **short_conv.ungated_launches} == {
+        k: n + mamba for k, n in before.items()}
+    assert rec.counts["mamba.scan_rows"] == mamba * tiny.BATCH * tiny.SEQ * 2
+    ref = tiny.reference_step(params, tokens, routes, model=model)
+    gaps = tiny.step_gaps((loss, grad, new), ref[:3], params)
+    assert gaps["loss"] <= tiny.LOSS_TOL, gaps
+    assert gaps["grad"] <= tiny.GRAD_TOL, gaps
+    assert gaps["update"] <= tiny.GRAD_TOL, gaps
+    control = tiny.reference_step(params, tokens, routes, "fp8", model)
+    assert tiny.step_gaps(control[:3], ref[:3], params)["grad"] \
+        > tiny.GRAD_TOL

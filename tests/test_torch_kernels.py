@@ -24,7 +24,7 @@ import types
 import pytest
 import torch
 
-from tpu_device_plugin_torch.validator import _kernels, short_conv, xent
+from tpu_device_plugin_torch.validator import _kernels, short_conv, ssd, xent
 from tpu_device_plugin_torch.validator import flash_attention as fa
 
 STREAM = 0x5EED
@@ -90,6 +90,12 @@ class _Library:
         return self.symbols.setdefault(name, _Symbol(self.ret))
 
 
+def _all_counts():
+    """Every kernel wrapper's launch counts."""
+    return (fa.launches, xent.launches, short_conv.launches,
+            short_conv.ungated_launches, ssd.launches)
+
+
 @pytest.fixture
 def stub(monkeypatch):
     """`_kernels.library` returns a `_Library` of Python callables (the
@@ -118,7 +124,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", _Guard)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=STREAM))
-    saved = [(m.launches, dict(m.launches)) for m in (fa, xent, short_conv)]
+    saved = [(counts, dict(counts)) for counts in _all_counts()]
     yield state
     for counts, before in saved:
         counts.update(before)
@@ -228,21 +234,57 @@ def _conv_bwd(monkeypatch):
     return short_conv.launches, {"conv_bwd": 1}
 
 
+def _conv_silu_fwd(monkeypatch):
+    # a slice of a wider projection's rows, as the Mamba mixer passes it
+    x = torch.zeros(2, 9, 40, dtype=torch.bfloat16)[..., 8:32]
+    short_conv.conv_silu_fwd(x, torch.zeros(4, 24), torch.zeros(24))
+    return short_conv.ungated_launches, {"conv_silu_fwd": 1}
+
+
+def _conv_silu_bwd(monkeypatch):
+    x = torch.zeros(2, 9, 40, dtype=torch.bfloat16)[..., 8:32]
+    short_conv.conv_silu_bwd(x, torch.zeros(4, 24), torch.zeros(24),
+                             torch.zeros(2, 9, 24, dtype=torch.bfloat16))
+    return short_conv.ungated_launches, {"conv_silu_bwd": 1}
+
+
+def _scan_inputs():
+    """x, dt, a, B, C, D as the Mamba mixer passes them: x, B and C views
+    of one (b, s, heads x 64 + 2 x 128) row."""
+    xbc = torch.zeros(1, 5, 2 * 64 + 2 * 128, dtype=torch.bfloat16)
+    x, B, C = xbc.split([128, 128, 128], -1)
+    return (x.view(1, 5, 2, 64), torch.zeros(1, 5, 2), torch.zeros(2),
+            B.view(1, 5, 1, 128), C.view(1, 5, 1, 128), torch.zeros(2))
+
+
+def _ssd_fwd(monkeypatch):
+    ssd.ssd_fwd(*_scan_inputs(), True)
+    return ssd.launches, {"ssd_fwd": 1}
+
+
+def _ssd_bwd(monkeypatch):
+    inputs = _scan_inputs()
+    ssd.ssd_bwd(*inputs, torch.zeros(1, 1, 2, 64, 128),
+                torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16))
+    return ssd.launches, {"ssd_bwd": 1}
+
+
 @pytest.mark.parametrize("entry, call", [
     ("flash_fwd", _flash_fwd), ("flash_bwd", _flash_bwd),
     ("xent_fwd", _xent_fwd), ("xent_bwd", _xent_bwd),
     ("conv_fwd", _conv_fwd), ("conv_bwd", _conv_bwd),
+    ("conv_silu_fwd", _conv_silu_fwd), ("conv_silu_bwd", _conv_silu_bwd),
+    ("ssd_fwd", _ssd_fwd), ("ssd_bwd", _ssd_bwd),
 ])
 def test_each_launch_site_passes_its_entrys_parameters(stub, monkeypatch,
                                                        entry, call):
     library, argtypes = _kernels.ENTRIES[entry]
-    before = {m: dict(m.launches) for m in (fa, xent, short_conv)}
+    before = [(c, dict(c)) for c in _all_counts()]
     counts, moved = call(monkeypatch)
     args, = stub.libs[library].symbols[entry].calls
     assert len(args) == len(argtypes) and args[-1] == STREAM
     for arg, argtype in zip(args, argtypes):
         argtype.from_param(arg)   # raises where ctypes could not convert
-    for module, was in before.items():
-        assert module.launches == {
-            k: n + (moved.get(k, 0) if module.launches is counts else 0)
-            for k, n in was.items()}
+    for c, was in before:
+        assert c == {k: n + (moved.get(k, 0) if c is counts else 0)
+                     for k, n in was.items()}

@@ -114,6 +114,12 @@ ENTRIES: Dict[str, Tuple[str, Tuple[type, ...]]] = {
     "xent_bwd": ("xent", (_P,) * 5 + (_I,) * 4 + (_L,) * 3 + (_P,)),
     "conv_fwd": ("short_conv", (_P,) * 3 + (_I,) * 5 + (_P,)),
     "conv_bwd": ("short_conv", (_P,) * 6 + (_I,) * 5 + (_P,)),
+    "conv_silu_fwd": ("conv_silu", (_P, _L) + (_P,) * 3 + (_I,) * 5 + (_P,)),
+    "conv_silu_bwd": ("conv_silu", (_P, _L) + (_P,) * 6 + (_I,) * 5 + (_P,)),
+    "ssd_fwd": ("ssd", (_P, _L, _P, _P, _P, _L, _P, _L) + (_P,) * 3
+                + (_I,) * 4 + (_P,)),
+    "ssd_bwd": ("ssd", (_P, _L, _P, _P, _P, _L, _P, _L) + (_P,) * 10
+                + (_I,) * 4 + (_P,)),
 }
 _fns: Dict[str, Callable[..., int]] = {}
 # the one-device ring launches from a thread per member

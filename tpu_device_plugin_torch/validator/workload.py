@@ -9,8 +9,10 @@ A second block, the hybrid one (chosen by `ModelConfig.layer_types`),
 runs on one device through the same entry points, with RMSNorms with
 weights (`w = 1 + g`, g the leaf) and the head tied to the embedding
 unless `untied_head`: LFM2's (e.g. LFM2-8B-A1B: gated short-conv and GQA
-layers), and DeepSeek-V3's (e.g. Moonlight-16B-A3B: multi-head latent
-attention, shared experts beside the routed ones, an untied head). Each
+layers), DeepSeek-V3's (e.g. Moonlight-16B-A3B: multi-head latent
+attention, shared experts beside the routed ones, an untied head), and
+Granite-4.0-H's (Mamba-2 layers on the chunked scan of ssd.py beside GQA
+without positions, a softmax router, muP's multipliers). Each
 layer of either block is a token mixer and an MLP of the kinds
 `ModelConfig.kinds` names: their functions in `MIXERS` and `FFNS`, their
 leaves in `_part_leaves` (`leaf_shapes`).
@@ -64,7 +66,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import short_conv, tracing, xent
+from . import short_conv, ssd, tracing, xent
 from .distributed import (all_reduce_grads, enter, exit_, gather, pipe_recv,
                           pipe_send, queue_offsets)
 from .mesh import mesh_shape
@@ -93,20 +95,27 @@ class ModelConfig:
     remat: bool = False
     # The hybrid block, chosen by `layer_types`: each layer's token mixer
     # in order, "conv" (a gated short convolution), "attention"
-    # ("full_attention" too; with an RMSNorm on each query and key head) or
-    # "mla" (multi-head latent attention); empty for the block above. Its
-    # MLPs and experts are SwiGLU, its MoE dropless over the top
-    # experts_per_token of sigmoid scores plus a selection bias, its
-    # RMSNorms have weights, and its head is tied to the embedding unless
-    # untied_head. Its numbers, each at its default in the block above:
-    # key-value heads (0: n_heads); dense layers before the MoE ones; the
-    # experts' width (0: d_ff); experts per token; the experts held here
-    # (0: n_experts, which routing always spans); RoPE's theta; the norms'
-    # eps; latent attention's widths: the latent, each query and key
-    # head's dims without and with RoPE, each value head's; the shared
-    # experts' width (0: none), run on every token beside the routed ones;
-    # the routed weights' scale and the epsilon of their normaliser; the
-    # head untied.
+    # ("full_attention" too; GQA, with an RMSNorm on each query and key
+    # head and RoPE where rope_theta is set, with neither where not), "mla"
+    # (multi-head latent attention) or "mamba" (Mamba-2's mixer); empty for
+    # the block above. Its MLPs and experts are SwiGLU, its MoE dropless
+    # over the top experts_per_token of sigmoid scores plus a selection
+    # bias or of the router's logits (softmax), its RMSNorms have weights,
+    # and its head is tied to the embedding unless untied_head. Its
+    # numbers, each at its default in the block above: key-value heads (0:
+    # n_heads); dense layers before the MoE ones; the experts' width (0:
+    # d_ff); experts per token; the experts held here (0: n_experts, which
+    # routing always spans); RoPE's theta (0: no RoPE); the norms' eps;
+    # latent attention's widths: the latent, each query and key head's
+    # dims without and with RoPE, each value head's; the shared experts'
+    # width (0: none), run on every token beside the routed ones; the
+    # routed weights' scale and the epsilon of their normaliser; the head
+    # untied; Mamba-2's widths: its heads, their dim (the inner width is
+    # heads x head dim), the state, the groups of B and C, the
+    # convolution's taps; the attention scores' scale (0: head dim **
+    # -0.5); the router's scores, "sigmoid" or "softmax" (over the chosen
+    # logits); the factors on the embedding, on each part's output before
+    # the residual add, and the divisor of the logits (muP's).
     layer_types: Tuple[str, ...] = ()
     n_kv_heads: int = 0
     n_dense_layers: int = 0
@@ -123,6 +132,16 @@ class ModelConfig:
     routed_scale: float = 1.0
     router_eps: float = 1e-6
     untied_head: bool = False
+    mamba_heads: int = 0
+    mamba_head_dim: int = 0
+    mamba_state: int = 0
+    mamba_groups: int = 0
+    mamba_taps: int = 0
+    attention_scale: float = 0.0
+    router_scores: str = "sigmoid"
+    embedding_scale: float = 1.0
+    residual_scale: float = 1.0
+    logits_scale: float = 1.0
 
     def __post_init__(self):
         object.__setattr__(self, "layer_types", tuple(self.layer_types))
@@ -148,8 +167,26 @@ class ModelConfig:
         if self.n_heads % (self.n_kv_heads or self.n_heads):
             raise ValueError(f"n_heads={self.n_heads} is not a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
-        if self.rope_theta <= 0:
-            raise ValueError("the hybrid block needs rope_theta > 0")
+        if self.router_scores not in ("sigmoid", "softmax"):
+            raise ValueError(f"router_scores is 'sigmoid' or 'softmax'; got "
+                             f"{self.router_scores!r}")
+        if self.router_scores == "softmax" and not self.shared_d_ff:
+            raise ValueError("the softmax router runs beside shared experts "
+                             "(shared_d_ff)")
+        mixers = {mixer for mixer, _ in self.kinds(self.n_layers)}
+        roped = sorted(mixers & {"qk_norm_attention", "mla"})
+        if roped and self.rope_theta <= 0:
+            raise ValueError(f"{roped} layers use RoPE and need rope_theta "
+                             "> 0")
+        if "mamba" in mixers:
+            missing = [name for name in _MAMBA_WIDTHS
+                       if getattr(self, name) <= 0]
+            if missing:
+                raise ValueError(f"mamba layers need {missing} > 0")
+            if self.mamba_heads % self.mamba_groups:
+                raise ValueError(f"mamba_heads={self.mamba_heads} is not a "
+                                 f"multiple of mamba_groups="
+                                 f"{self.mamba_groups}")
 
     @property
     def hybrid(self) -> bool:
@@ -167,33 +204,50 @@ class ModelConfig:
     def kinds(self, n: int) -> List[Tuple[str, str]]:
         """(token mixer, MLP) of each of `n` layers, keys of `MIXERS` and
         `FFNS`: above, "attention" and "mlp", or "switch" with n_experts;
-        in the hybrid block "conv", "mla" or "qk_norm_attention" by
-        `layer_types`, and "swiglu", or past n_dense_layers with n_experts
-        "dropless", "shared_dropless" with shared_d_ff."""
+        in the hybrid block "conv", "mla" or "mamba" by `layer_types`, and
+        for its attention layers "qk_norm_attention" where rope_theta is
+        set and "attention" where not; "swiglu", or past n_dense_layers with
+        n_experts "dropless", "shared_dropless" with shared_d_ff,
+        "softmax_shared_dropless" with the softmax router."""
         if not self.hybrid:
             return [("attention", "switch" if self.n_experts else "mlp")] * n
         moe = "shared_dropless" if self.shared_d_ff else "dropless"
+        if self.router_scores == "softmax":
+            moe = "softmax_shared_dropless"
+        attention = "qk_norm_attention" if self.rope_theta > 0 else "attention"
         types = self.layer_types
-        return [(types[i] if types[i] in _OWN_MIXERS else "qk_norm_attention",
+        return [(types[i] if types[i] in _OWN_MIXERS else attention,
                  moe if self.n_experts and i >= self.n_dense_layers
                  else "swiglu") for i in range(n)]
 
 
 _ATTENTION = ("attention", "full_attention")
-_OWN_MIXERS = ("conv", "mla")   # layer types that name their mixer's kind
+# layer types that name their mixer's kind
+_OWN_MIXERS = ("conv", "mla", "mamba")
+_MAMBA_WIDTHS = ("mamba_heads", "mamba_head_dim", "mamba_state",
+                 "mamba_groups", "mamba_taps")
 _HYBRID_NUMBERS = ("n_kv_heads", "n_dense_layers", "expert_d_ff",
                    "experts_per_token", "experts_held", "rope_theta",
                    "norm_eps", "kv_lora_rank", "qk_nope_head_dim",
                    "qk_rope_head_dim", "v_head_dim", "shared_d_ff",
-                   "routed_scale", "router_eps", "untied_head")
+                   "routed_scale", "router_eps", "untied_head",
+                   *_MAMBA_WIDTHS, "attention_scale", "router_scores",
+                   "embedding_scale", "residual_scale", "logits_scale")
 CONV_TAPS = 3   # the short convolution's taps (LFM2's conv_L_cache)
 # the latent's RMSNorm eps in latent attention: DeepSeek-V3's
 # kv_a_layernorm takes its norm's default, not the block's rms_norm_eps
 LATENT_EPS = 1e-6
-# norm weights are stored as offsets from 1 and drawn as 0 here; the bias
+# Mamba-2's A_log and dt_bias are stored as offsets from these, as the norm
+# weights are stored as offsets from 1 (and D too), so that a draw of
+# N(0, 1) times a scale makes them: a = -exp(MAMBA_A_LOG + A_log), -4 at
+# the offset 0, in Mamba's range -1 .. -16; softplus(MAMBA_DT_BIAS) = 0.01,
+# in the range 0.001 .. 0.1 of its time_step_min / max
+MAMBA_A_LOG = math.log(4.0)
+MAMBA_DT_BIAS = math.log(math.expm1(0.01))
+# norm weights (and Mamba-2's offsets above) are drawn as 0 here; the bias
 # only selects experts
 _ZERO_INIT = ("q_norm", "k_norm", "kv_norm", "op_norm", "ffn_norm",
-              "final_norm", "moe_bias")
+              "final_norm", "moe_bias", "gate_norm", "A_log", "dt_bias", "D")
 
 
 def leaf_shapes(cfg: ModelConfig) -> Shapes:
@@ -373,7 +427,7 @@ def _attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         # i // (h / kv); the copy's backward sums each group
         k = k[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
         v = v[:, :, :, None].expand(b, s, kv, h // kv, dh).reshape(b, s, h, dh)
-    out = _attend(q, k, v, dh ** -0.5, attention, ax)
+    out = _attend(q, k, v, cfg.attention_scale or dh ** -0.5, attention, ax)
     return _row_sharded(out, layer["wo"], ax)
 
 
@@ -502,6 +556,48 @@ def _short_conv(x: torch.Tensor, layer: Params) -> torch.Tensor:
     return gated @ _bf16(layer["conv_out"])
 
 
+def _mamba(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Mamba-2's mixer (Granite-4.0-H's) on x (b, s, d) bf16:
+
+    - z, xBC, dt = split(x @ in_proj), z of the inner width, xBC of inner +
+      2 groups x state, dt one per head;
+    - xBC through the causal depthwise convolution of `conv_w`'s taps with
+      the bias `conv_b`, then SiLU (short_conv.conv_silu: C1's ungated
+      kernels on the card, reading xBC in place in the projection's rows
+      where their width is a multiple of 8; span `mamba.conv`); then split
+      into x, B and C;
+    - dt = softplus(dt + MAMBA_DT_BIAS + dt_bias) and a = -exp(MAMBA_A_LOG
+      + A_log), in f32; the scan (ssd.py: S1 on the card, counter
+      `mamba.scan_rows`, b s heads; span `mamba.scan`) with D = 1 + D's
+      leaf;
+    - the RMSNorm of y silu(z) over the inner width (Mamba-2's gated norm,
+      one group) in f32, its weight 1 + gate_norm, rounded to bf16 once;
+      then @ out_proj."""
+    b, s, _ = x.shape
+    heads, p = cfg.mamba_heads, cfg.mamba_head_dim
+    g, n = cfg.mamba_groups, cfg.mamba_state
+    inner = heads * p
+    z, xbc, dt = (x @ _bf16(layer["in_proj"])).split(
+        [inner, inner + 2 * g * n, heads], -1)
+    if xbc.stride(1) % 8:
+        # C1 reads rows 16 bytes at a time: a projection whose width is not
+        # a multiple of 8 (not Granite's 16768) is copied dense first
+        xbc = xbc.contiguous()
+    with tracing.span("mamba.conv"):
+        xbc = short_conv.conv_silu(xbc, layer["conv_w"], layer["conv_b"])
+    xs, B, C = xbc.split([inner, g * n, g * n], -1)
+    delta = F.softplus(dt.float() + (MAMBA_DT_BIAS + layer["dt_bias"]))
+    a = -torch.exp(MAMBA_A_LOG + layer["A_log"])
+    with tracing.span("mamba.scan"):
+        y = ssd.ssd(xs.view(b, s, heads, p), delta, a, B.view(b, s, g, n),
+                    C.view(b, s, g, n), 1 + layer["D"])
+    if y.is_cuda:
+        tracing.count("mamba.scan_rows", b * s * heads)
+    gated = y.view(b, s, inner).float() * F.silu(z.float())
+    y = _rms_norm(gated, cfg.norm_eps, layer["gate_norm"]).to(y.dtype)
+    return y @ _bf16(layer["out_proj"])
+
+
 def _capacity(tokens: int, n_experts: int, factor: float) -> int:
     """Per-expert capacity over `tokens` tokens, padded to a multiple of 8."""
     return min(tokens, max(8, math.ceil(
@@ -628,21 +724,35 @@ def _moe_onehot(x: torch.Tensor, layer: Params,
     return out.view(b, s, d)
 
 
-def _route_topk(xt: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+def _route_topk(xt: torch.Tensor, wr: torch.Tensor,
+                bias: Optional[torch.Tensor],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routing of tokens xt (t, d) bf16 over all n_experts: scores
-    s = sigmoid(f32 router logits of the bf16 operands, as `_route`); the
-    experts_per_token largest s + bias, the bias selecting only (no
-    gradient reaches it); their weights the chosen s, divided by their sum
-    + router_eps (norm_topk_prob: LFM2's 1e-6, DeepSeek-V3's 1e-20), times
-    routed_scale where it is not 1 (routed_scaling_factor). One group of
-    experts: DeepSeek-V3's group-limited choice with n_group = topk_group
-    = 1 keeps every expert. Returns (weights (t, k) f32, experts (t, k))."""
-    scores = torch.sigmoid(xt.float() @ _bf16(wr).float())
-    chosen = (scores.detach() + bias.detach()).topk(
-        cfg.experts_per_token, -1).indices
-    weights = scores.gather(1, chosen)
-    weights = weights / (weights.sum(-1, keepdim=True) + cfg.router_eps)
+    """Top-k routing of tokens xt (t, d) bf16 over all n_experts, on the
+    f32 router logits of the bf16 operands (as `_route`), by the router
+    that the FFN kind gives `_moe_dropless`, which passes:
+
+    - the sigmoid router's selection bias (e,): scores s = sigmoid(logits);
+      the experts_per_token largest s + bias, the bias selecting only (no
+      gradient reaches it); their weights the chosen s, divided by their
+      sum + router_eps
+      (norm_topk_prob: LFM2's 1e-6, DeepSeek-V3's 1e-20). One group of
+      experts: DeepSeek-V3's group-limited choice with n_group = topk_group
+      = 1 keeps every expert.
+    - None for the softmax router: the experts_per_token largest logits,
+      weighted by the softmax over those alone (Granite's top-k gating).
+
+    Then times routed_scale where it is not 1 (routed_scaling_factor).
+    Returns (weights (t, k) f32, experts (t, k))."""
+    logits = xt.float() @ _bf16(wr).float()
+    if bias is None:
+        top = logits.topk(cfg.experts_per_token, -1)
+        weights, chosen = torch.softmax(top.values, -1), top.indices
+    else:
+        scores = torch.sigmoid(logits)
+        chosen = (scores.detach() + bias.detach()).topk(
+            cfg.experts_per_token, -1).indices
+        weights = scores.gather(1, chosen)
+        weights = weights / (weights.sum(-1, keepdim=True) + cfg.router_eps)
     if cfg.routed_scale != 1:
         weights = weights * cfg.routed_scale
     return weights, chosen
@@ -730,10 +840,11 @@ def _held_experts(xt: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-                  first: int = 0) -> torch.Tensor:
+                  first: int = 0, router: str = "sigmoid") -> torch.Tensor:
     """The hybrid block's dropless top-k MoE on x (b, s, d) bf16, on one
     device holding experts [first, first + w1e.shape[0]): every
-    token routed over all n_experts (`_route_topk`), the pairs to the
+    token routed over all n_experts by `router` (`_route_topk`; the
+    sigmoid router with the selection bias `moe_bias`), the pairs to the
     experts held computed (`_held_experts`), none dropped; what the
     experts held elsewhere would add is not part of the result. Nothing
     is read back to the host. The experts' products are recomputed in the
@@ -745,8 +856,9 @@ def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
+    bias = layer["moe_bias"] if router == "sigmoid" else None
     with tracing.span("moe.route"):
-        weights, chosen = _route_topk(xt, layer["wr"], layer["moe_bias"], cfg)
+        weights, chosen = _route_topk(xt, layer["wr"], bias, cfg)
     with tracing.span("moe.dispatch"):
         plan = _dispatch_plan(chosen, first, layer["w1e"].shape[0])
     if tracing.counting():
@@ -763,14 +875,14 @@ def _moe_dropless(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     return out.view(b, s, d)
 
 
-def _moe_shared(x: torch.Tensor, layer: Params,
-                cfg: ModelConfig) -> torch.Tensor:
+def _moe_shared(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+                router: str = "sigmoid") -> torch.Tensor:
     """DeepSeek-V3's MoE on x (b, s, d) bf16: the dropless routed experts
-    held here (`_moe_dropless`) plus the shared experts, one SwiGLU of
-    width shared_d_ff on every token (span `moe.shared`), added in bf16 as
-    the published layer adds them. Every chip of an expert-parallel
+    held here (`_moe_dropless`, by `router`) plus the shared experts, one
+    SwiGLU of width shared_d_ff on every token (span `moe.shared`), added
+    in bf16 as the published layer adds them. Every chip of an expert-parallel
     deployment computes the shared experts alike, for its own tokens."""
-    routed = _moe_dropless(x, layer, cfg)
+    routed = _moe_dropless(x, layer, cfg, router=router)
     with tracing.span("moe.shared"):
         shared = _swiglu(x, layer["ws1"], layer["ws3"], layer["ws2"])
     return routed + shared
@@ -818,10 +930,14 @@ def _part_leaves(cfg: ModelConfig) -> Dict[str, Shapes]:
     fe, held = cfg.expert_d_ff or ff, cfg.experts_held or e
     fs, lat = cfg.shared_d_ff, cfg.kv_lora_rank
     nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    mh = cfg.mamba_heads
+    inner = mh * cfg.mamba_head_dim
+    xbc = inner + 2 * cfg.mamba_groups * cfg.mamba_state
     attention = {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d)}
     w1e, w2e = (held, d, fe), (held, fe, d)
-    dropless = {"wr": (d, e), "w1e": w1e, "w3e": w1e, "w2e": w2e,
-                "moe_bias": (e,)}
+    routed = {"wr": (d, e), "w1e": w1e, "w3e": w1e, "w2e": w2e}
+    dropless = {**routed, "moe_bias": (e,)}
+    shared = {"ws1": (d, fs), "ws3": (d, fs), "ws2": (fs, d)}
     return {
         "attention": attention,
         "qk_norm_attention": {**attention, "q_norm": (dh,), "k_norm": (dh,)},
@@ -830,10 +946,14 @@ def _part_leaves(cfg: ModelConfig) -> Dict[str, Shapes]:
         "mla": {"q_proj": (d, h * (nope + rope)), "kv_a": (d, lat + rope),
                 "kv_norm": (lat,), "kv_b": (lat, h * (nope + dv)),
                 "o_proj": (h * dv, d)},
+        "mamba": {"in_proj": (d, inner + xbc + mh),
+                  "conv_w": (cfg.mamba_taps, xbc), "conv_b": (xbc,),
+                  "dt_bias": (mh,), "A_log": (mh,), "D": (mh,),
+                  "gate_norm": (inner,), "out_proj": (inner, d)},
         "switch": {"wr": (d, e), "w1e": w1e, "w2e": w2e},
         "dropless": dropless,
-        "shared_dropless": {**dropless, "ws1": (d, fs), "ws3": (d, fs),
-                            "ws2": (fs, d)},
+        "shared_dropless": {**dropless, **shared},
+        "softmax_shared_dropless": {**routed, **shared},
         "mlp": {"w1": (d, ff), "w2": (ff, d)},
         "swiglu": {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)},
     }
@@ -855,6 +975,8 @@ MIXERS: Dict[str, _Part] = {
     "mla": _Part("workload.attention",
                  lambda h, layer, cfg, attention, _: _mla(h, layer, cfg,
                                                           attention)),
+    "mamba": _Part("workload.mamba",
+                   lambda h, layer, cfg, *_: _mamba(h, layer, cfg)),
 }
 FFNS: Dict[str, _Part] = {
     "switch": _Part("workload.ffn",
@@ -864,6 +986,9 @@ FFNS: Dict[str, _Part] = {
     "shared_dropless": _Part("workload.ffn",
                              lambda h, layer, cfg, *_: _moe_shared(h, layer,
                                                                    cfg)),
+    "softmax_shared_dropless": _Part("workload.ffn",
+                                     lambda h, layer, cfg, *_: _moe_shared(
+                                         h, layer, cfg, router="softmax")),
     "mlp": _Part("workload.ffn", lambda h, layer, _, __, ax: _mlp(h, layer, ax)),
     "swiglu": _Part("workload.ffn", lambda h, layer, *_: _swiglu(
         h, layer["w1"], layer["w3"], layer["w2"])),
@@ -874,13 +999,16 @@ def _layer_body(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                 attention: str, ax: Optional[_Axes],
                 kind: Tuple[str, str]) -> torch.Tensor:
     """One layer: its token mixer, then its MLP, each on the normed stream
-    and added to it, under its part's span. `kind` is the layer's (mixer,
-    MLP) of `cfg.kinds`."""
+    and added to it (times residual_scale where it is not 1), under its
+    part's span. `kind` is the layer's (mixer, MLP) of `cfg.kinds`."""
     mixer, ffn = kind
     for part, norm in ((MIXERS[mixer], "op_norm"), (FFNS[ffn], "ffn_norm")):
         with tracing.span(part.span):
             h = _block_norm(x, layer, norm, cfg)
-            y = x + part.run(h, layer, cfg, attention, ax)
+            out = part.run(h, layer, cfg, attention, ax)
+            if cfg.residual_scale != 1:
+                out = out * cfg.residual_scale
+            y = x + out
             x = tracing.backward(part.span, x, y)
     return x
 
@@ -889,8 +1017,11 @@ def _stage(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
            attention: str, ax: Optional[_Axes]) -> torch.Tensor:
     """The residual stream after this rank's layers: all of them without a
     pp axis; on a pp stage its own, from the embedding on the first stage
-    and from the stage before on a later one."""
+    and from the stage before on a later one; the embedding's rows times
+    embedding_scale where it is not 1."""
     x = _bf16(params["embed"])[tokens]
+    if cfg.embedding_scale != 1:
+        x = x * cfg.embedding_scale
     if ax is not None:
         x = gather(x, -1, ax.group["tp"], sum_grads=False)
         if ax.index["pp"] > 0:
@@ -932,15 +1063,19 @@ def _logits(params: Params, x: torch.Tensor, ax: Optional[_Axes],
             cfg: ModelConfig) -> torch.Tensor:
     """bf16 logits from the last layer's residual stream: the final
     RMSNorm (`final_norm` in the hybrid block) and the unembedding, tied to
-    the embedding (its transpose) where `cfg.tied`."""
+    the embedding (its transpose) where `cfg.tied`, divided by
+    logits_scale where it is not 1."""
     x = _block_norm(x, params, "final_norm", cfg)
     if cfg.tied:
-        return x @ _bf16(params["embed"]).t()
-    if ax is not None:
-        # unembed is row-sharded: each rank multiplies its d-slice
-        width = params["unembed"].shape[0]
-        x = enter(x, ax.group["tp"]).narrow(-1, ax.index["tp"] * width, width)
-    return _row_sharded(x, params["unembed"], ax)
+        logits = x @ _bf16(params["embed"]).t()
+    else:
+        if ax is not None:
+            # unembed is row-sharded: each rank multiplies its d-slice
+            width = params["unembed"].shape[0]
+            x = enter(x, ax.group["tp"]).narrow(-1, ax.index["tp"] * width,
+                                                width)
+        logits = _row_sharded(x, params["unembed"], ax)
+    return logits if cfg.logits_scale == 1 else logits / cfg.logits_scale
 
 
 def _send_on(x: torch.Tensor, ax: _Axes) -> torch.Tensor:
